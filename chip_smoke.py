@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's fused-scan serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
+scan and the graph walker.
 
     python3 chip_smoke.py
 
@@ -7,22 +8,36 @@ Run from the root of a checkout of this repository (it imports
 each printing its wall time:
 
 0. the card's name and power limit (nvidia-smi);
-1. build the CUDA kernels with one nvcc call per source, into .kernel_build/;
+1. build the CUDA kernels, one nvcc process per source, all started
+   together, into .kernel_build/;
 2. the contract corpus: synthetic SIFT-like n = 1,000,000 x 128 and 16,384
    queries from seed 0, the trained 128→32 projection and the cached exact
    ground truth under results/; the port's exact kNN must reproduce that
    ground truth on the first 1,024 queries;
-3. each kernel (K1 binned_scan in bf16 and int8, K2 merge_topc) against its
-   plain PyTorch version on the serving shapes, with its time, the plain
-   version's, one PyTorch library call's and the least time the card could
-   take (bound);
-4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
-   (c = 16): requests through submit() and HTTP /search, /search_raw on an
-   ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
-   QPS (median of ten batches), the recall run with the launch counts set
-   to 0 before and read after;
-   R@10 must lie within 0.005 of the JAX reference's rows on these inputs;
-5. teardown: services stopped, HTTP server shut down, threads joined.
+3. each scan kernel (K1 binned_scan in bf16, int8 and f32, and at a reduced
+   width of 160; K2 merge_topc) against its plain PyTorch version on the
+   serving shapes, with its time, the plain version's, one PyTorch library
+   call's and the least time the card could take (bound);
+4. serving: SearchService(engine="fused") in bf16 (c = 12), int8 (c = 16)
+   and f32 (c = 12): requests through submit() and HTTP /search,
+   /search_raw on an ephemeral localhost port, then the 16,384 queries, with
+   R@1, R@10 and QPS (median of ten requests), the recall run with the
+   launch counts set to 0 before and read after; R@10 must lie within 0.005
+   of the JAX reference's rows on these inputs (f32: not below bf16's);
+5. graph build on the projected corpus: build_knn_graph(backend="fused",
+   K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
+   and the reachability repair; every node reachable from the walker's
+   entries; edge overlap with the exact build's graph on 1,024 sampled
+   nodes at least the JAX package's 0.7874 less 0.02; centroid entries
+   (n / 256 centroids) and the bf16 hop payload;
+6. K3 row_gather against its plain version on 65,536 rows of that payload;
+7. walker vs plain: 1,024 queries walked with K3 and with the plain
+   gather, identical; the f32-payload walk identical to the plain walker's;
+8. serving: SearchService(engine="graph_pallas") over the 16,384 queries
+   at ef = 32, 48, 64 (submit() and HTTP), with R@1, R@10, K3 launches per
+   request (one per hop) and QPS; R@10 at ef = 64 at least 0.95 and not
+   falling as ef grows;
+9. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -37,6 +52,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -52,11 +68,21 @@ REFERENCE = {"bfloat16": {"c": 12, "r1": 0.9999, "r10": 0.9622},
              "int8": {"c": 16, "r1": 0.9999, "r10": 0.9890}}
 R10_TOL = 0.005
 SCAN_RTOL = 1e-5     # fp32 sums in another order than the plain matmul
+# The fused graph build's edge overlap with the exact build's graph, from
+# the JAX package on these inputs (results/build_time_1m.json), less 0.02;
+# and the graph walker's recall target (results/walker_ab_1m.json).
+OVERLAP_MIN = 0.7874 - 0.02
+GRAPH_R10_MIN = 0.95
+GRAPH_K = 32
+GRAPH_EFS = (32, 48, 64)
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
-PEAK_OPS_S = {"bfloat16": 989e12, "int8": 1979e12}   # dense tensor cores
-KERNEL_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
+# dense tensor cores (bf16, int8); fp32 on the CUDA cores
+PEAK_OPS_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
+GATHER_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gather.cu"
 REPLACES = {"binned_scan": "src/gbnns_tpu/kernels/scan_topk_pallas.py:44",
-            "merge_topc": "src/gbnns_tpu/kernels/scan_topk_pallas.py:559"}
+            "merge_topc": "src/gbnns_tpu/kernels/scan_topk_pallas.py:559",
+            "row_gather": "src/gbnns_tpu/kernels/gather_pallas.py:40"}
 
 
 class SmokeFailure(Exception):
@@ -146,8 +172,42 @@ def load_data(device, n: int, nq: int, proj_file: str):
     return base, query, base_lo, gt, trained
 
 
+def _scan_check(st, idx, qlo, label: str, plain_iters: int = 2):
+    """K1 of ``idx`` on queries ``qlo`` against its plain version; returns
+    the agreement report, the scan's outputs and its record (times, bound;
+    the library yardstick is filled by the caller)."""
+    import torch
+
+    q_scan, alpha = idx.scan_queries(qlo)
+    args = (q_scan, idx.x_lo, idx.addvec, alpha)
+    kw = dict(bin_size=idx.bin_size, packed=idx.packed)
+    got = st.binned_scan(*args, **kw)
+    ref = st.binned_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
+    say(f"K1 binned_scan[{label}] vs plain: {rep}")
+    check(rep["ok"], f"K1 {label} disagrees with its plain version")
+    B, d = q_scan.shape
+    n_pad = idx.x_lo.shape[0]
+    n_bins = n_pad // idx.bin_size
+    ms = time_ms(lambda: st.binned_scan(*args, **kw))
+    plain_ms = time_ms(lambda: st.binned_scan_plain(*args, **kw), plain_iters)
+    el = q_scan.element_size()
+    n_bytes = (B * d * el + n_pad * d * el + n_pad * 4
+               + (B * 4 if alpha is not None else 0) + n_bins * B * 8)
+    dtype = str(idx.x_lo.dtype).removeprefix("torch.")
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
+    rec = dict(name=f"binned_scan[{label}]", route="cuda", source=SCAN_SOURCE,
+               replaces=REPLACES["binned_scan"], launches=None,
+               max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    say(f"K1 [{label}] B={B} n_pad={n_pad} d={d}: {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return got, args, rec
+
+
 def kernel_checks(base, query, base_lo, trained, device, records):
-    """Each kernel against its plain version on the serving shapes."""
+    """Each scan kernel against its plain version on the serving shapes."""
     import numpy as np
     import torch
 
@@ -155,43 +215,26 @@ def kernel_checks(base, query, base_lo, trained, device, records):
     from gbnns_tpu_torch.kernels import scan_topk as st
 
     qlo = projector(trained)(torch.from_numpy(query).to(device))
-    for dtype in ("bfloat16", "int8"):
+    for dtype in ("bfloat16", "int8", "float32"):
         idx = st.FusedScanIndex(base, base_lo, scan_dtype=dtype, device=device)
-        q_scan, alpha = idx.scan_queries(qlo)
-        args = (q_scan, idx.x_lo, idx.addvec, alpha)
-        kw = dict(bin_size=idx.bin_size, packed=idx.packed)
-        got = st.binned_scan(*args, **kw)
-        ref = st.binned_scan_plain(*args, **kw)
-        torch.cuda.synchronize()
-        rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
-        say(f"K1 binned_scan[{dtype}] vs plain: {rep}")
-        check(rep["ok"], f"K1 {dtype} disagrees with its plain version")
-        B, d = q_scan.shape
-        n_pad = idx.x_lo.shape[0]
-        n_bins = n_pad // idx.bin_size
-        ms = time_ms(lambda: st.binned_scan(*args, **kw))
-        plain_ms = time_ms(lambda: st.binned_scan_plain(*args, **kw), 2)
+        got, args, rec = _scan_check(st, idx, qlo, dtype)
         if dtype == "bfloat16":
             # yardstick: the bare score product, (n_pad, B) bf16 in memory
-            lib_ms = time_ms(lambda: torch.matmul(idx.x_lo, q_scan.T), 3)
+            rec["library_ms"] = time_ms(
+                lambda: torch.matmul(idx.x_lo, args[0].T), 3)
             torch.cuda.empty_cache()
-        else:
-            lib_ms = None  # an int8 product's int32 scores would take 65 GB
-        el = q_scan.element_size()
-        n_bytes = (B * d * el + n_pad * d * el + n_pad * 4
-                   + (B * 4 if alpha is not None else 0) + n_bins * B * 8)
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
-        records[f"binned_scan[{dtype}]"] = dict(
-            name=f"binned_scan[{dtype}]", route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES["binned_scan"], launches=None,
-            max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        say(f"K1 [{dtype}] B={B} n_pad={n_pad} d={d}: {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib_ms} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+        # int8: an int8 product's int32 scores would take 65 GB; f32: its
+        # f32 scores 66 GB. No single library call fits: library_ms null.
+        say(f"K1 [{dtype}] library {rec['library_ms']} ms")
+        records[rec["name"]] = rec
+        if dtype == "float32":
+            del idx, got, args
+            torch.cuda.empty_cache()
+            continue
 
         c = REFERENCE[dtype]["c"]
         vals, ids = got
+        B, n_bins = vals.shape[1], vals.shape[0]
         gm = st.merge_topc(vals, ids, c)
         rm = st.merge_topc_plain(vals, ids, c)
         torch.cuda.synchronize()
@@ -206,14 +249,61 @@ def kernel_checks(base, query, base_lo, trained, device, records):
         b_ms, b_by = bound_ms(n_bins * B * 8 + B * c * 8, 0.0, "bfloat16")
         records[f"merge_topc[{dtype},c={c}]"] = dict(
             name=f"merge_topc[{dtype},c={c}]", route="cuda",
-            source=KERNEL_SOURCE, replaces=REPLACES["merge_topc"],
+            source=SCAN_SOURCE, replaces=REPLACES["merge_topc"],
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         say(f"K2 [c={c}] R={n_bins} B={B}: {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, topk {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
-        del idx, got, ref, vals, ids, vt
+        del idx, got, args, vals, ids, vt
         torch.cuda.empty_cache()
+
+    # a reduced width above 128 takes the wide kernel: a seeded 128→160
+    # projection of the corpus, 2,048 queries
+    w = np.random.default_rng(160).normal(size=(128, 160)).astype(np.float32)
+    wt = torch.from_numpy(w).to(device)
+    lo160 = (torch.from_numpy(base).to(device) @ wt).cpu().numpy()
+    idx = st.FusedScanIndex(base, lo160, device=device)
+    _scan_check(st, idx, torch.from_numpy(query[:2048]).to(device) @ wt,
+                "bfloat16,d=160")
+    del idx, lo160
+    torch.cuda.empty_cache()
     return records
+
+
+def gather_check(payload, n_rows: int, device, records):
+    """K3 against its plain version on ``n_rows`` rows of the serving
+    payload, ids from a seeded generator: bit-exact."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.kernels import gather
+
+    ids = np.random.default_rng(3).integers(0, payload.n, n_rows)
+    idx = torch.from_numpy(ids.astype(np.int32)).to(device)
+    got = gather.row_gather(payload.data, idx)
+    ref = gather.row_gather_plain(payload.data, idx)
+    torch.cuda.synchronize()
+    equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    say(f"K3 row_gather vs plain ({n_rows} rows of {payload.words * 4} B): "
+        f"bit-exact {equal}")
+    check(equal, "K3 differs from its plain version")
+    # the walker's call: its ids need no check
+    ms = time_ms(lambda: gather.row_gather(payload.data, idx,
+                                           check_ids=False), 20)
+    plain_ms = time_ms(lambda: gather.row_gather_plain(payload.data, idx,
+                                                       check_ids=False), 20)
+    lib_ms = time_ms(lambda: torch.index_select(payload.data, 0, idx), 20)
+    row_bytes = payload.words * 4
+    b_ms, b_by = bound_ms(2 * n_rows * row_bytes + n_rows * 4, 0.0,
+                          "bfloat16")
+    records["row_gather"] = dict(
+        name="row_gather", route="cuda", source=GATHER_SOURCE,
+        replaces=REPLACES["row_gather"], launches=None, max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms)
+    say(f"K3 [{n_rows} x {row_bytes} B]: {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{2 * n_rows * row_bytes / ms / 1e6:.0f} GB/s moved")
 
 
 def _post(port: int, path: str, body: bytes, ctype: str) -> bytes:
@@ -229,26 +319,21 @@ def _post(port: int, path: str, body: bytes, ctype: str) -> bytes:
         conn.close()
 
 
-def serve_run(dtype, base, query, base_lo, gt, trained, device, records,
-              targets: bool):
+def _serve(svc, label: str, query, gt, direct_fn, counters: dict,
+           timed: int) -> dict:
+    """Requests through ``svc`` (submit() from four threads, one HTTP
+    /search_raw and one /search) held against ``direct_fn(rows)``, the same
+    search without the service; then the main path: all queries as one
+    request with every launch count in ``counters`` (module → names) set to
+    0 before and read after, and ``timed`` more requests on the host clock.
+    Stops the service and its HTTP server. Returns recall, QPS and
+    counts."""
     import numpy as np
-    import torch
 
-    from gbnns_tpu_torch.dimred.train import projector
     from gbnns_tpu_torch.eval.recall import recall_at_k
-    from gbnns_tpu_torch.kernels import scan_topk as st
-    from gbnns_tpu_torch.serve import (SearchService, make_server,
-                                       pack_raw_request, serve,
+    from gbnns_tpu_torch.serve import (make_server, pack_raw_request, serve,
                                        unpack_raw_response)
 
-    ref = REFERENCE[dtype]
-    c = ref["c"]
-    t0 = time.perf_counter()
-    svc = SearchService(base, base_lo, engine="fused", c=c,
-                        projection=projector(trained), scan_dtype=dtype,
-                        max_batch=4096, device=device)
-    say(f"SearchService(fused, {dtype}, c={c}) up: "
-        f"{time.perf_counter() - t0:.2f} s")
     httpd = make_server(svc, 0, "127.0.0.1")
     port = httpd.server_address[1]
     server = threading.Thread(target=serve, args=(svc,),
@@ -256,11 +341,7 @@ def serve_run(dtype, base, query, base_lo, gt, trained, device, records,
     server.start()
     try:
         # direct search of the same rows is the yardstick for each request
-        direct = svc.fused.search(
-            torch.from_numpy(query[:300]).to(device),
-            projector(trained)(torch.from_numpy(query[:300]).to(device)),
-            k=10, c=c)
-        direct_ids = direct[0].cpu().numpy()
+        direct_ids = direct_fn(query[:300])
         results = {}
         # a request's rows ride in a batch of another size than the direct
         # search's, where cuBLAS may sum the projection in another order;
@@ -295,57 +376,328 @@ def serve_run(dtype, base, query, base_lo, gt, trained, device, records,
         say(f"requests: submit x4, /search_raw (136 queries), /search (2): "
             f"{share:.4f} of rows equal to a direct search")
         check(share >= 0.99, "served rows differ from a direct search")
-
-        # the main path: all queries through the service, counts from 0
-        st.reset_launches()
-        t0 = time.perf_counter()
-        ids, _ = svc.submit(query, None, 10, timeout=600)
-        first_s = time.perf_counter() - t0
-        counts = dict(st.launches)
-        r1 = recall_at_k(ids, gt, 1)
-        r10 = recall_at_k(ids, gt, 10)
-        check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
-              and ids.max() < base.shape[0], "result ids out of range")
-        # host clock around whole requests: the host is shared, so take
-        # ten and report the median and the spread
-        batch_s = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            svc.submit(query, None, 10, timeout=600)
-            batch_s.append(time.perf_counter() - t0)
-        q1, med, q3 = np.percentile(batch_s, [25, 50, 75])
-        qps = query.shape[0] / med
-        say(f"fused {dtype} c={c}: R@1={r1:.4f} R@10={r10:.4f} "
-            f"QPS={qps:,.0f} (median of 10 batches; batch ms quartiles "
-            f"{q1 * 1e3:.2f} / {med * 1e3:.2f} / {q3 * 1e3:.2f}, min "
-            f"{min(batch_s) * 1e3:.2f}, max {max(batch_s) * 1e3:.2f}; "
-            f"first batch {first_s:.3f} s) launches {counts}")
-        say(json.dumps({"engine": f"fused[{dtype}]", "c": c, "r1": r1,
-                        "r10": r10, "qps": qps, "batch_ms": [
-                            t * 1e3 for t in batch_s],
-                        "nq": query.shape[0], "reference_r10": ref["r10"]}))
-        records[f"binned_scan[{dtype}]"]["launches"] = counts["binned_scan"]
-        records[f"merge_topc[{dtype},c={c}]"]["launches"] = counts["merge_topc"]
-        if device.type == "cuda":
-            check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
-                  f"the {dtype} serving run launched no kernel: {counts}")
-        if targets:
-            check(abs(r10 - ref["r10"]) <= R10_TOL,
-                  f"R@10 {r10:.4f} is not within {R10_TOL} of the "
-                  f"reference {ref['r10']}")
+        out = _main_path(svc, label, query, gt, counters, timed)
     finally:
         httpd.shutdown()   # serve() returns, closes the socket, stops svc
         server.join(30)
     check(not server.is_alive(), "HTTP server thread did not stop")
     check(not svc._dispatcher.is_alive() and not svc._completer.is_alive(),
           "service threads did not stop")
+    return out
+
+
+def _main_path(svc, label: str, query, gt, counters: dict,
+               timed: int) -> dict:
+    """All queries through ``svc`` as one request, launch counts from 0;
+    then ``timed`` requests on the host clock (the host is shared, so the
+    median and the quartiles are reported)."""
+    import numpy as np
+
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+
+    for module in counters:
+        module.reset_launches()
+    t0 = time.perf_counter()
+    ids, _ = svc.submit(query, None, 10, timeout=600)
+    first_s = time.perf_counter() - t0
+    counts = {name: module.launches[name]
+              for module, names in counters.items() for name in names}
+    r1 = recall_at_k(ids, gt, 1)
+    r10 = recall_at_k(ids, gt, 10)
+    check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+          and ids.max() < svc.flat.base_full.shape[0],
+          "result ids out of range")
+    batch_s = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        svc.submit(query, None, 10, timeout=600)
+        batch_s.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(batch_s, [25, 50, 75])
+    qps = query.shape[0] / med
+    say(f"{label}: R@1={r1:.4f} R@10={r10:.4f} QPS={qps:,.0f} (median of "
+        f"{timed} requests of {query.shape[0]} queries; request ms "
+        f"quartiles {q1 * 1e3:.2f} / {med * 1e3:.2f} / {q3 * 1e3:.2f}, min "
+        f"{min(batch_s) * 1e3:.2f}, max {max(batch_s) * 1e3:.2f}; first "
+        f"request {first_s:.3f} s) launches {counts}")
+    out = {"engine": label, "r1": r1, "r10": r10, "qps": qps,
+           "batch_ms": [t * 1e3 for t in batch_s], "nq": query.shape[0],
+           "launches": counts}
+    say(json.dumps(out))
+    return out
+
+
+def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
+                targets: bool, timed: int) -> dict:
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.serve import SearchService
+
+    # f32 has no reference row: it rides on the bf16 row's c
+    c = REFERENCE.get(dtype, REFERENCE["bfloat16"])["c"]
+    t0 = time.perf_counter()
+    svc = SearchService(base, base_lo, engine="fused", c=c,
+                        projection=projector(trained), scan_dtype=dtype,
+                        max_batch=4096, device=device)
+    say(f"SearchService(fused, {dtype}, c={c}) up: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def direct(rows):
+        q = torch.from_numpy(rows).to(device)
+        return svc.fused.search(q, projector(trained)(q), k=10,
+                                c=c)[0].cpu().numpy()
+
+    out = _serve(svc, f"fused {dtype} c={c}", query, gt, direct,
+                 {st: ("binned_scan", "merge_topc")}, timed)
+    counts = out["launches"]
+    records.setdefault(f"binned_scan[{dtype}]", {})["launches"] = \
+        counts["binned_scan"]
+    if dtype in REFERENCE:
+        records.setdefault(f"merge_topc[{dtype},c={c}]", {})["launches"] = \
+            counts["merge_topc"]
+    if device.type == "cuda":
+        check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
+              f"the {dtype} serving run launched no kernel: {counts}")
+    if targets and dtype in REFERENCE:
+        ref = REFERENCE[dtype]["r10"]
+        check(abs(out["r10"] - ref) <= R10_TOL,
+              f"R@10 {out['r10']:.4f} is not within {R10_TOL} of the "
+              f"reference {ref}")
+    return out
+
+
+def graph_build(base_lo, device, targets: bool, seconds: dict):
+    """The fused kNN-graph build on the projected corpus, its reachability
+    and its overlap with the exact build; then centroid entries and the
+    bf16 hop payload."""
+    import numpy as np
+
+    from gbnns_tpu_torch.build.knn_graph import (build_knn_graph,
+                                                 forward_reachable)
+    from gbnns_tpu_torch.search.entries import CentroidEntries
+    from gbnns_tpu_torch.search.walker import default_entry_ids
+    from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
+
+    n = base_lo.shape[0]
+    t0 = time.perf_counter()
+    stats: dict = {}
+    graph = build_knn_graph(base_lo, GRAPH_K, backend="fused", stats=stats,
+                            device=device)
+    say(f"fused graph {graph.shape}: {time.perf_counter() - t0:.2f} s (sweep "
+        f"{stats['scan_s']:.2f} s, reverse edges {stats['reverse_s']:.2f} s, "
+        f"ensure_connected {stats['connect_s']:.2f} s)")
+    seconds.update({f"fused_{k}": v for k, v in stats.items()})
+    reached = forward_reachable(graph, np.asarray(default_entry_ids(n)))
+    say(f"reachable from the walker's entries: {int(reached.sum())}/{n}")
+    check(bool(reached.all()), "the graph is not fully reachable")
+    t0 = time.perf_counter()
+    stats = {}
+    exact = build_knn_graph(base_lo, GRAPH_K, backend="xla", stats=stats,
+                            device=device)
+    say(f"exact graph: {time.perf_counter() - t0:.2f} s (sweep "
+        f"{stats['scan_s']:.2f} s, reverse edges {stats['reverse_s']:.2f} s, "
+        f"ensure_connected {stats['connect_s']:.2f} s)")
+    seconds.update({f"exact_{k}": v for k, v in stats.items()})
+    rows = np.random.default_rng(0).choice(n, min(1024, n), replace=False)
+    overlap = float(np.mean([np.intersect1d(graph[r], exact[r]).size
+                             for r in rows]) / GRAPH_K)
+    say(f"edge overlap with the exact build on {rows.size} nodes: "
+        f"{overlap:.4f} (JAX package on these inputs: 0.7874)")
+    if targets:
+        check(overlap >= OVERLAP_MIN,
+              f"overlap {overlap:.4f} < {OVERLAP_MIN:.4f}")
+    del exact
+    t0 = time.perf_counter()
+    entries = CentroidEntries.build(base_lo, ncent=n // 256, device=device)
+    say(f"CentroidEntries ({n // 256} centroids): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    payload = pack_hop_payload(graph, base_lo, vec_dtype="bfloat16",
+                               device=device)
+    say(f"bf16 hop payload: {payload.words * 4} B rows, "
+        f"{payload.data.numel() * 4 / 1e9:.3f} GB, "
+        f"{time.perf_counter() - t0:.2f} s")
+    return graph, entries, payload
+
+
+def walker_checks(graph, entries, payload, base_lo, query, trained, device):
+    """1,024 queries: the walk with K3 against the same walk with the plain
+    gather, and the f32-payload walk against the plain walker: identical."""
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.kernels import gather
+    from gbnns_tpu_torch.search.walker import beam_search
+    from gbnns_tpu_torch.search.walker_payload import (beam_search_payload,
+                                                       pack_hop_payload)
+
+    q = projector(trained)(torch.from_numpy(query[:1024]).to(device))
+    ent = entries.query_entries(q, 16)
+    lo = torch.from_numpy(base_lo).to(device)
+
+    def same(a, b):
+        return (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+                and torch.equal(a.n_dist, b.n_dist) and a.hops == b.hops)
+
+    kw = dict(ef=48, max_hops=64)
+    k3 = beam_search_payload(q, payload, lo, ent, **kw)
+    plain = beam_search_payload(q, payload, lo, ent,
+                                gather=gather.row_gather_plain, **kw)
+    say(f"walker bf16, K3 vs plain gather: identical {same(k3, plain)} "
+        f"({k3.hops} hops, {k3.n_dist.float().mean().item():.1f} distances "
+        f"a query)")
+    check(same(k3, plain), "the K3 walk differs from the plain-gather walk")
+    p32 = pack_hop_payload(graph, base_lo, vec_dtype="float32", device=device)
+    a = beam_search_payload(q, p32, lo, ent, **kw)
+    b = beam_search(q, lo, torch.from_numpy(graph).to(device), ent, **kw)
+    say(f"walker f32 payload vs beam_search: identical {same(a, b)} "
+        f"({a.hops} hops)")
+    check(same(a, b), "the f32-payload walk differs from beam_search")
+    del p32
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def hop_breakdown(svc, query, trained, device, ef: int = 48) -> dict:
+    """Where a graph request's time goes: the device time of each stage of
+    one hop (CUDA events, each stage alone, 20 runs) on a pool taken from a
+    real walk of all queries, stopped after 8 hops with the first half of
+    every pool marked expanded; and the stages around the walk."""
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.kernels.gather import row_gather
+    from gbnns_tpu_torch.kernels.distance import squared_norms
+    from gbnns_tpu_torch.search.rerank import rerank
+    from gbnns_tpu_torch.search.walker import (intra_dedup_mask, merge_pool,
+                                               select_frontier)
+    from gbnns_tpu_torch.search.walker_payload import (_hop_dists,
+                                                       beam_search_payload)
+
+    gidx = svc.gidx
+    pay = gidx.payload
+    qf = torch.from_numpy(query).to(device)
+    ql = projector(trained)(qf)
+    B, M, K = ql.shape[0], 4, pay.K
+    ent = gidx.entries.query_entries(ql, 16)
+    res = beam_search_payload(ql, pay, gidx.base_lo, ent, ef=ef, max_hops=8)
+    beam_ids, beam_d = res.ids, res.dists
+    expanded = (torch.arange(ef, device=device) < ef // 2).expand(B, ef)
+    q_sq = squared_norms(ql)
+    f_ids, live, _ = select_frontier(beam_ids, expanded, M)
+    raw = row_gather(pay.data, f_ids.reshape(-1), check_ids=False)
+    dist, nbrs = _hop_dists(raw, ql, q_sq, B=B, M=M, K=K, d=pay.d,
+                            vec_words=pay.vec_words, bf16=pay.bf16,
+                            metric="l2")
+
+    def dedup():
+        dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(dim=-1)
+        dup |= intra_dedup_mask(nbrs)
+        invalid = (nbrs < 0) | dup
+        return invalid, torch.where(invalid, float("inf"), dist)
+
+    invalid, cand_d = dedup()
+    stages = {
+        "frontier (cumsum + stable sort)":
+            lambda: select_frontier(beam_ids, expanded, M),
+        "K3 gather": lambda: row_gather(pay.data, f_ids.reshape(-1),
+                                        check_ids=False),
+        "hop distances (decode + bmm)": lambda: _hop_dists(
+            raw, ql, q_sq, B=B, M=M, K=K, d=pay.d, vec_words=pay.vec_words,
+            bf16=pay.bf16, metric="l2"),
+        "dedup (pool compare + sort)": dedup,
+        "merge (stable sort + gathers)": lambda: merge_pool(
+            beam_ids, beam_d, expanded, nbrs, cand_d, invalid, ef),
+        "host sync (one flag)": lambda: bool((~expanded).any()),
+    }
+    out = {name: time_ms(fn, 20) for name, fn in stages.items()}
+    hop = sum(out.values())
+    for name, ms in out.items():
+        say(f"  hop stage {name}: {ms:.4f} ms ({ms / hop:.0%})")
+    around = {
+        "projection": lambda: projector(trained)(qf),
+        "centroid entries": lambda: gidx.entries.query_entries(ql, 16),
+        "re-rank": lambda: rerank(qf, gidx.base_full, beam_ids, 10,
+                                  base_sqnorms=gidx.base_sq),
+    }
+    for name, fn in around.items():
+        out[name] = time_ms(fn, 10)
+        say(f"  request stage {name}: {out[name]:.4f} ms")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    walk = beam_search_payload(ql, pay, gidx.base_lo, ent, ef=ef,
+                               max_hops=64)
+    sync()
+    out["walk_ms"] = (time.perf_counter() - t0) * 1e3
+    out["hops"] = walk.hops
+    say(f"walk of {B} queries at ef={ef}: {out['walk_ms']:.2f} ms over "
+        f"{walk.hops} hops = {out['walk_ms'] / walk.hops:.3f} ms a hop "
+        f"(host clock); the stages alone sum to {hop:.3f} ms")
+    return out
+
+
+def serve_graph(base, query, base_lo, gt, trained, graph, entries, device,
+                records, targets: bool, timed: int) -> list[dict]:
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.kernels import gather
+    from gbnns_tpu_torch.serve import SearchService
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cents = os.path.join(tmp, "centroids.npz")
+        entries.save(cents)   # the staged quantizer, as `serve --centroids`
+        t0 = time.perf_counter()
+        svc = SearchService(base, base_lo, graph, engine="graph_pallas",
+                            ef=GRAPH_EFS[0], projection=projector(trained),
+                            centroids_path=cents, max_batch=4096,
+                            device=device)
+    say(f"SearchService(graph_pallas) up: {time.perf_counter() - t0:.2f} s")
+
+    def direct(rows):
+        q = torch.from_numpy(rows).to(device)
+        return svc.gidx.search(q, projector(trained)(q), k=10, ef=svc.ef,
+                               num_entries=min(16, svc.ef))[0].cpu().numpy()
+
+    if device.type == "cuda":
+        hop_breakdown(svc, query, trained, device)
+    counters = {gather: ("row_gather",)}
+    outs = []
+    for i, ef in enumerate(GRAPH_EFS):
+        svc.ef = ef   # read by every search
+        label = f"graph_pallas ef={ef}"
+        if i + 1 < len(GRAPH_EFS):
+            outs.append(_main_path(svc, label, query, gt, counters, timed))
+        else:   # the last ef also answers HTTP, then stops the service
+            outs.append(_serve(svc, label, query, gt, direct, counters,
+                               timed))
+        launches = outs[-1]["launches"]["row_gather"]
+        say(f"{label}: K3 launches per request {launches} (one per hop)")
+        if device.type == "cuda":
+            check(launches > 0, f"{label} launched no K3")
+        if ef == 48:
+            records.setdefault("row_gather", {})["launches"] = launches
+    r10 = [o["r10"] for o in outs]
+    if targets:
+        check(r10[-1] >= GRAPH_R10_MIN,
+              f"graph R@10 {r10[-1]:.4f} < {GRAPH_R10_MIN} at ef={GRAPH_EFS[-1]}")
+        check(all(b >= a for a, b in zip(r10, r10[1:])),
+              f"graph R@10 falls as ef grows: {r10}")
+    return outs
 
 
 def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
          proj_file: str = "bench_proj_n1000000_d128x32_s600_sel_seed1.npz",
-         targets: bool = True) -> dict:
-    """Run every phase; ``targets`` holds recall to the reference rows,
-    which belong to the default sizes only."""
+         targets: bool = True, timed: int = 10) -> dict:
+    """Run every phase; ``targets`` holds recall and overlap to the
+    reference figures, which belong to the default sizes only; ``timed``
+    requests are timed per served configuration."""
     import torch
 
     from gbnns_tpu_torch._device import resolve_device
@@ -353,32 +705,51 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
 
     device = resolve_device(device_name)
     records: dict[str, dict] = {}
+    threads_before = set(threading.enumerate())
     with Phase("build kernels"):
         if device.type == "cuda":
             t0 = time.perf_counter()
-            _build.build(["scan_topk"])
-            say(f"nvcc build: {time.perf_counter() - t0:.2f} s "
-                f"({_build.library_path('scan_topk').parent.name})")
+            _build.build(["scan_topk", "gather"])
+            say(f"nvcc build: {time.perf_counter() - t0:.2f} s ("
+                f"{_build.library_path('scan_topk').parent.name}, "
+                f"{_build.library_path('gather').parent.name})")
     with Phase("data"):
         base, query, base_lo, gt, trained = load_data(device, n, nq, proj_file)
     if device.type == "cuda":
         with Phase("kernels vs plain"):
             kernel_checks(base, query, base_lo, trained, device, records)
-    for dtype in ("bfloat16", "int8"):
-        records.setdefault(f"binned_scan[{dtype}]", {})
-        records.setdefault(
-            f"merge_topc[{dtype},c={REFERENCE[dtype]['c']}]", {})
+    served = {}
+    for dtype in ("bfloat16", "int8", "float32"):
         with Phase(f"serve fused {dtype}"):
-            serve_run(dtype, base, query, base_lo, gt, trained, device,
-                      records, targets)
+            served[dtype] = serve_fused(dtype, base, query, base_lo, gt,
+                                        trained, device, records, targets,
+                                        timed)
+    if targets:
+        check(served["float32"]["r10"] >= served["bfloat16"]["r10"] - R10_TOL,
+              "the f32 scan's R@10 falls below the bf16 scan's")
+    build_s: dict = {}
+    with Phase("graph build"):
+        graph, entries, payload = graph_build(base_lo, device, targets,
+                                              build_s)
+    if device.type == "cuda":
+        with Phase("kernels vs plain: row_gather"):
+            gather_check(payload, 4 * query.shape[0], device, records)
+    with Phase("walker vs plain"):
+        walker_checks(graph, entries, payload, base_lo, query, trained,
+                      device)
+    del payload
+    with Phase("serve graph_pallas"):
+        serve_graph(base, query, base_lo, gt, trained, graph, entries, device,
+                    records, targets, timed)
     with Phase("teardown"):
         if device.type == "cuda":
             torch.cuda.synchronize()
-        for t in threading.enumerate():
-            if t is not threading.main_thread():
-                t.join(5)  # HTTP connection threads end once clients close
-        alive = [t.name for t in threading.enumerate()
-                 if t is not threading.main_thread() and t.is_alive()]
+        # every thread this run started must end (HTTP connection threads
+        # end once clients close)
+        started = set(threading.enumerate()) - threads_before
+        for t in started:
+            t.join(5)
+        alive = [t.name for t in started if t.is_alive()]
         check(not alive, f"threads still running: {alive}")
     return records
 

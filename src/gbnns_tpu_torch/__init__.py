@@ -4,14 +4,17 @@ NVIDIA H100.
 
 The JAX package stays beside it as the reference; this package imports none
 of it, nor JAX. Module names follow the JAX package's, so each module's
-counterpart is found by name. Ported so far (ROADMAP.md): the fused-scan
-serving path.
+counterpart is found by name (``search/walker.py`` is ``walker_jax.py``,
+``search/walker_payload.py`` is ``walker_pallas.py``). Ported so far
+(ROADMAP.md): the fused-scan serving path and the graph serving path.
 
   io/        fvecs/ivecs codecs, dataset registry, synthetic data
-  kernels/   distances, exact kNN, the binned scan and top-c merge
-             (hand-written CUDA kernels under kernels/csrc/)
+  kernels/   distances, exact kNN, the binned scan, top-c merge and row
+             gather (hand-written CUDA kernels under kernels/csrc/)
+  build/     kNN-graph build and its host passes, k-means
   dimred/    projection models and the checkpoint loader
-  search/    re-rank, flat index
+  search/    re-rank, flat index, centroid entries, beam walkers, graph
+             index, device-memory sizing
   eval/      recall, exact ground truth
   serve.py   HTTP search service; cli.py its command line
 
@@ -25,6 +28,11 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "FusedScanIndex": "gbnns_tpu_torch.kernels.scan_topk",
     "FlatIndex": "gbnns_tpu_torch.search.flat",
+    "GraphIndex": "gbnns_tpu_torch.search.graph_index",
+    "CentroidEntries": "gbnns_tpu_torch.search.entries",
+    "build_knn_graph": "gbnns_tpu_torch.build.knn_graph",
+    "beam_search": "gbnns_tpu_torch.search.walker",
+    "beam_search_payload": "gbnns_tpu_torch.search.walker_payload",
     "SearchService": "gbnns_tpu_torch.serve",
     "load_projection": "gbnns_tpu_torch.dimred.train",
     "project": "gbnns_tpu_torch.dimred.train",

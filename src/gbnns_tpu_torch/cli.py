@@ -1,15 +1,18 @@
 """``python -m gbnns_tpu_torch.cli`` — the port's command line.
 
-  serve     HTTP search service over staged artifacts (engines fused, flat)
+  build     kNN graph → npy (backends xla, fused)
+  serve     HTTP search service over staged artifacts (engines fused, flat,
+            graph, graph_pallas)
 
-The other subcommands of the JAX package's ``gbnns`` CLI (synth, gt, build,
-train, search, sweep, plot, size, pipeline) are still to be ported
-(ROADMAP.md). ``serve`` takes the same flags as there, plus ``--device``.
+The other subcommands of the JAX package's ``gbnns`` CLI (synth, gt, train,
+search, sweep, plot, size, pipeline) are still to be ported (ROADMAP.md).
+``build`` and ``serve`` take the same flags as there, plus ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -31,13 +34,10 @@ def _load_base_query(args):
 
 def build_service(args):
     """The ``SearchService`` that ``serve`` runs, from parsed flags."""
+    from gbnns_tpu_torch.build.knn_graph import load_graph
     from gbnns_tpu_torch.io.vecs import read_fvecs
     from gbnns_tpu_torch.serve import SearchService
 
-    if args.graph or args.centroids:
-        raise NotImplementedError(
-            "--graph and --centroids need the graph engines, still to be "
-            "ported: ROADMAP.md slice 2")
     base, _ = _load_base_query(args)
     base_lo = (np.ascontiguousarray(read_fvecs(args.base_lo), dtype=np.float32)
                if args.base_lo else None)
@@ -46,10 +46,27 @@ def build_service(args):
         from gbnns_tpu_torch.dimred.train import load_projection, projector
 
         projection = projector(load_projection(args.proj, device=args.device))
-    return SearchService(base, base_lo, metric=args.metric,
+    graph = np.asarray(load_graph(args.graph)) if args.graph else None
+    return SearchService(base, base_lo, graph, metric=args.metric,
                          engine=args.engine, ef=args.ef, c=args.c,
                          projection=projection, scan_dtype=args.scan_dtype,
+                         centroids_path=args.centroids,
                          h2d_dtype=args.h2d_dtype, device=args.device)
+
+
+def cmd_build(args):
+    from gbnns_tpu_torch.build.knn_graph import build_knn_graph, save_graph
+
+    base, _ = _load_base_query(args)
+    t0 = time.perf_counter()
+    graph = build_knn_graph(base, args.k, metric=args.metric,
+                            chunk=args.chunk, node_chunk=args.node_chunk,
+                            connect=not args.no_connect,
+                            backend=args.backend, verbose=args.verbose,
+                            device=args.device)
+    dt = time.perf_counter() - t0
+    save_graph(args.out, graph)
+    print(f"built kNN graph {graph.shape} in {dt:.1f}s → {args.out}")
 
 
 def cmd_serve(args):
@@ -62,44 +79,69 @@ def cmd_serve(args):
     serve(svc, port=args.port, host=args.host)
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gbnns_tpu_torch",
                                 description="Graph-based NNS with learned "
                                             "dimensionality reduction, on "
                                             "PyTorch and CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def add_data_args(sp):
+        sp.add_argument("--dataset", default="sift1m")
+        sp.add_argument("--scale", type=float, default=1.0)
+        sp.add_argument("--max-base", type=int, default=None, dest="max_base")
+        sp.add_argument("--base", help="base.fvecs path (overrides --dataset)")
+        sp.add_argument("--metric", default="l2",
+                        choices=["l2", "ip", "angular"])
+        sp.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+
+    sp = sub.add_parser("build", help="kNN graph → npy")
+    add_data_args(sp)
+    sp.add_argument("--k", type=int, default=32)
+    sp.add_argument("--chunk", type=int, default=65536)
+    sp.add_argument("--node-chunk", type=int, default=8192, dest="node_chunk")
+    sp.add_argument("--approx", action="store_true",
+                    help="accepted for the JAX package's scripts; selection "
+                         "is exact in both backends here")
+    sp.add_argument("--no-connect", action="store_true", dest="no_connect")
+    sp.add_argument("--backend", default="xla", choices=["xla", "fused"],
+                    help="candidate sweep: exact (fp32 products + topk) | "
+                         "fused binned scan (kernels K1 and K2)")
+    sp.add_argument("--verbose", action="store_true")
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_build)
+
     sp = sub.add_parser("serve", help="HTTP search service over staged artifacts")
-    sp.add_argument("--dataset", default="sift1m")
-    sp.add_argument("--scale", type=float, default=1.0)
-    sp.add_argument("--max-base", type=int, default=None, dest="max_base")
-    sp.add_argument("--base", help="base.fvecs path (overrides --dataset)")
-    sp.add_argument("--metric", default="l2", choices=["l2", "ip", "angular"])
+    add_data_args(sp)
     sp.add_argument("--base-lo", dest="base_lo")
-    sp.add_argument("--graph", help="graph engines: not ported yet")
+    sp.add_argument("--graph", help="adjacency npy (the graph engines)")
     sp.add_argument("--proj", help="projection checkpoint (proj.npz) to project raw queries")
-    sp.add_argument("--engine", default="flat", choices=["flat", "fused"])
+    sp.add_argument("--engine", default="flat",
+                    choices=["flat", "fused", "graph", "graph_pallas"])
     sp.add_argument("--ef", type=int, default=64)
     sp.add_argument("--c", type=int, default=64)
     sp.add_argument("--port", type=int, default=8390)
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--scan-dtype", default="bfloat16", dest="scan_dtype",
-                    choices=["bfloat16", "int8"],
+                    choices=["bfloat16", "int8", "float32"],
                     help="fused engine corpus dtype (the re-rank absorbs "
                          "the int8 rounding)")
     sp.add_argument("--centroids", default=None,
-                    help="graph engines' centroid entries: not ported yet")
+                    help="staged CentroidEntries npz for graph_pallas "
+                         "(skips the k-means fit)")
     sp.add_argument("--no-warm", action="store_true", dest="no_warm",
                     help="skip the warm-up search at every request-size bucket")
     sp.add_argument("--h2d-dtype", dest="h2d_dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="upload dtype for coalesced query batches; "
                          "bfloat16 halves the bytes")
-    sp.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_serve)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
     args.fn(args)
 
 

@@ -1,4 +1,5 @@
 from gbnns_tpu_torch.kernels.distance import pairwise_dists, squared_norms
-from gbnns_tpu_torch.kernels.topk import knn, knn_chunked
+from gbnns_tpu_torch.kernels.topk import knn, knn_chunked, knn_fused
 
-__all__ = ["pairwise_dists", "squared_norms", "knn", "knn_chunked"]
+__all__ = ["pairwise_dists", "squared_norms", "knn", "knn_chunked",
+           "knn_fused"]

@@ -79,11 +79,39 @@ def build(names: list[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built ``lib<name>.so``, building it on first use."""
+    """The built ``lib<name>.so``, building it on first use. Every source
+    exports ``gbnns_error_string(int)``, which ``check`` reads."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
+            lib.gbnns_error_string.argtypes = [ctypes.c_int]
+            lib.gbnns_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.gbnns_error_string(err).decode()}")
+
+
+class LaunchCounts(dict):
+    """Kernel launches per wrapper: each wrapper counts one where it launches
+    its kernel, and nowhere else, so a run can show which kernels it used."""
+
+    def __init__(self, *names: str):
+        super().__init__({name: 0 for name in names})
+        self._lock = threading.Lock()
+
+    def count(self, name: str) -> None:
+        with self._lock:
+            self[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self:
+                self[name] = 0

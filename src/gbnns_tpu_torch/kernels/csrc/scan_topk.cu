@@ -14,8 +14,8 @@
 //   For every corpus bin of `bin_size` rows and every query it writes the
 //   bin's min reduced-dimension score and the row that attains it (ties to
 //   the lower row), bin-major: vals/ids (n_bins, B). Scores are
-//     bf16:  addvec[x] + dot(x, q)            x stored prescaled (-2x or -x)
-//     int8:  addvec[x] + float(dot_i32(x, q)) * alpha[q]
+//     bf16, f32:  addvec[x] + dot(x, q)       x stored prescaled (-2x or -x)
+//     int8:       addvec[x] + float(dot_i32(x, q)) * alpha[q]
 //   PACKED reproduces the Pallas packed mode: the score's IEEE bits are
 //   flipped into signed-int order, the low log2(bin_size) bits replaced by
 //   the in-bin row, and one integer min gives value and row together.
@@ -31,6 +31,14 @@
 //   loop is FMAs (dp4a) with one 16-byte shared load per four (sixteen)
 //   elements of a row. The scores never reach device memory. Tensor cores
 //   (mma.sync / wgmma) and TMA are left for a later change.
+//   f32 inputs take the same kernel with 4-byte rows and fp32 FMAs (no TF32,
+//   which would change the result); its bound is 2*B*n*d at the 67 TFLOP/s
+//   fp32 rate of the CUDA cores.
+//   Widths: d in {16, 32, 64, 128} holds 128 / d queries per thread in
+//   registers (binned_scan_kernel). Any wider d, a multiple of 16, takes
+//   binned_scan_wide_kernel: one query per thread, 32 corpus rows per step
+//   staged 64 columns at a time, the query read 16 columns at a time into
+//   registers and the 32 row sums kept in registers across the slabs.
 //
 // K2 merge_topc -- replaces scan_topk_pallas.py _merge_topc_kernel
 //   (pallas_call at line 600, reached through _merge_topc_stage and
@@ -48,10 +56,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kScanThreads = 128;
 constexpr int kTileBytes = 16384;  // corpus rows staged per step
+constexpr int kWideRows = 32;      // wide scan: corpus rows per step
+constexpr int kWideCols = 64;      // wide scan: columns per staged slab
+
+// Element type of the scan's query and corpus (the `kind` of the C API).
+enum ScanKind { kBf16 = 0, kInt8 = 1, kF32 = 2 };
 constexpr int kMergeQueries = 8;   // queries (warps) per merge block
 constexpr int kIntMax = 0x7FFFFFFF;
 
@@ -68,9 +83,17 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
+// One 16-byte group of eight bf16 values -> eight floats (exact).
+__device__ __forceinline__ void bf16x8_to_f32(uint4 v, float* f) {
+  f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x);
+  f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
+  f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
+  f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
+}
+
 // D in {16, 32, 64, 128}; QPT queries per thread keeps D * QPT = 128
 // registers of query data.
-template <int D, bool QUANT, bool PACKED>
+template <int D, int KIND, bool PACKED>
 __global__ void __launch_bounds__(kScanThreads)
 binned_scan_kernel(const void* __restrict__ q_ptr,
                    const void* __restrict__ x_ptr,
@@ -78,6 +101,7 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
                    const float* __restrict__ alpha,
                    float* __restrict__ out_val, int* __restrict__ out_idx,
                    int B, int bin_size, int idx_bits) {
+  constexpr bool QUANT = KIND == kInt8;
   constexpr int QPT = 128 / D;
   constexpr int kElem = QUANT ? 1 : 4;  // staged bytes per element
   constexpr int kRows = kTileBytes / (D * kElem);
@@ -110,20 +134,24 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
           qw[j][4 * k + 2] = v.z; qw[j][4 * k + 3] = v.w;
         }
         al[j] = alpha[qi];
+      } else if constexpr (KIND == kF32) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            static_cast<const float*>(q_ptr) + (long long)qi * D);
+#pragma unroll
+        for (int k = 0; k < D / 4; ++k) {
+          uint4 v = src[k];
+          qw[j][4 * k] = v.x; qw[j][4 * k + 1] = v.y;
+          qw[j][4 * k + 2] = v.z; qw[j][4 * k + 3] = v.w;
+        }
       } else {
         const uint4* src = reinterpret_cast<const uint4*>(
             static_cast<const uint16_t*>(q_ptr) + (long long)qi * D);
 #pragma unroll
         for (int k = 0; k < D / 8; ++k) {
-          uint4 v = src[k];
-          qw[j][8 * k + 0] = __float_as_uint(bf16_lo(v.x));
-          qw[j][8 * k + 1] = __float_as_uint(bf16_hi(v.x));
-          qw[j][8 * k + 2] = __float_as_uint(bf16_lo(v.y));
-          qw[j][8 * k + 3] = __float_as_uint(bf16_hi(v.y));
-          qw[j][8 * k + 4] = __float_as_uint(bf16_lo(v.z));
-          qw[j][8 * k + 5] = __float_as_uint(bf16_hi(v.z));
-          qw[j][8 * k + 6] = __float_as_uint(bf16_lo(v.w));
-          qw[j][8 * k + 7] = __float_as_uint(bf16_hi(v.w));
+          float f[8];
+          bf16x8_to_f32(src[k], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) qw[j][8 * k + e] = __float_as_uint(f[e]);
         }
       }
     } else {
@@ -148,6 +176,11 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
           static_cast<const int8_t*>(x_ptr) + (row0 + t0) * D);
       uint4* dst = reinterpret_cast<uint4*>(xs);
       for (int i = tid; i < cnt * (D / 16); i += kScanThreads) dst[i] = src[i];
+    } else if constexpr (KIND == kF32) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          static_cast<const float*>(x_ptr) + (row0 + t0) * D);
+      uint4* dst = reinterpret_cast<uint4*>(xs);
+      for (int i = tid; i < cnt * (D / 4); i += kScanThreads) dst[i] = src[i];
     } else {
       const uint4* src = reinterpret_cast<const uint4*>(
           static_cast<const uint16_t*>(x_ptr) + (row0 + t0) * D);
@@ -234,21 +267,200 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
   }
 }
 
+// Any d that is a multiple of 16 (used for d > 128): one query per thread.
+// A step stages kWideRows corpus rows kWideCols columns at a time; each
+// thread reads its query 16 columns at a time into registers and keeps the
+// kWideRows running row sums in registers across the slabs, so no score
+// leaves the block. Sums run column by column, as in binned_scan_kernel.
+template <int KIND, bool PACKED>
+__global__ void __launch_bounds__(kScanThreads)
+binned_scan_wide_kernel(const void* __restrict__ q_ptr,
+                        const void* __restrict__ x_ptr,
+                        const float* __restrict__ addvec,
+                        const float* __restrict__ alpha,
+                        float* __restrict__ out_val, int* __restrict__ out_idx,
+                        int B, int d, int bin_size, int idx_bits) {
+  constexpr bool QUANT = KIND == kInt8;
+  using Acc = typename std::conditional<QUANT, int, float>::type;
+  // slab row: kWideCols f32 (bf16, f32) or kWideCols int8 (16 per int4)
+  constexpr int kRowWords = QUANT ? kWideCols / 4 : kWideCols;
+  __shared__ __align__(16) uint32_t xs[kWideRows * kRowWords];
+  __shared__ float adds[kWideRows];
+
+  const int bin = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int qi = blockIdx.y * kScanThreads + tid;
+  const bool live = qi < B;
+  const long long row0 = (long long)bin * bin_size;
+  const int mask = (1 << idx_bits) - 1;
+  const float al = (QUANT && live) ? alpha[qi] : 0.f;
+  float best = __int_as_float(0x7F800000);  // +inf
+  int arg = PACKED ? kIntMax : 0;           // PACKED: running key
+
+  for (int t0 = 0; t0 < bin_size; t0 += kWideRows) {
+    const int cnt = min(kWideRows, bin_size - t0);
+    Acc acc[kWideRows];
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) acc[r] = 0;
+    for (int c0 = 0; c0 < d; c0 += kWideCols) {
+      const int groups = min(kWideCols, d - c0) / 16;  // 16-column groups
+      __syncthreads();  // the previous slab is consumed
+      // stage rows [t0, t0 + cnt) x columns [c0, c0 + 16 * groups); rows
+      // past cnt are zero
+      for (int i = tid; i < kWideRows * groups; i += kScanThreads) {
+        const int r = i / groups;
+        const int g = i % groups;
+        const long long e = (row0 + t0 + r) * d + c0 + 16 * g;  // element
+        if constexpr (QUANT) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (r < cnt)
+            v = *reinterpret_cast<const uint4*>(
+                static_cast<const int8_t*>(x_ptr) + e);
+          reinterpret_cast<uint4*>(xs)[r * (kRowWords / 4) + g] = v;
+        } else {
+          float f[16];
+          if (r >= cnt) {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) f[k] = 0.f;
+          } else if constexpr (KIND == kF32) {
+            const float4* src = reinterpret_cast<const float4*>(
+                static_cast<const float*>(x_ptr) + e);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float4 v = src[k];
+              f[4 * k] = v.x; f[4 * k + 1] = v.y;
+              f[4 * k + 2] = v.z; f[4 * k + 3] = v.w;
+            }
+          } else {
+            const uint4* src = reinterpret_cast<const uint4*>(
+                static_cast<const uint16_t*>(x_ptr) + e);
+            bf16x8_to_f32(src[0], f);
+            bf16x8_to_f32(src[1], f + 8);
+          }
+          float4* dst = reinterpret_cast<float4*>(xs) + r * (kRowWords / 4)
+                        + 4 * g;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            dst[k] = make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2],
+                                 f[4 * k + 3]);
+        }
+      }
+      if (c0 == 0)
+        for (int i = tid; i < cnt; i += kScanThreads)
+          adds[i] = addvec[row0 + t0 + i];
+      __syncthreads();
+
+      for (int g = 0; g < groups; ++g) {
+        const long long qe = (long long)qi * d + c0 + 16 * g;  // element
+        if constexpr (QUANT) {
+          int4 qv = make_int4(0, 0, 0, 0);
+          if (live)
+            qv = *reinterpret_cast<const int4*>(
+                static_cast<const int8_t*>(q_ptr) + qe);
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r) {
+            const int4 xv = reinterpret_cast<const int4*>(xs)[
+                r * (kRowWords / 4) + g];
+            acc[r] = __dp4a(xv.x, qv.x, acc[r]);
+            acc[r] = __dp4a(xv.y, qv.y, acc[r]);
+            acc[r] = __dp4a(xv.z, qv.z, acc[r]);
+            acc[r] = __dp4a(xv.w, qv.w, acc[r]);
+          }
+        } else {
+          float qv[16];
+          if (!live) {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) qv[k] = 0.f;
+          } else if constexpr (KIND == kF32) {
+            const float4* src = reinterpret_cast<const float4*>(
+                static_cast<const float*>(q_ptr) + qe);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float4 v = src[k];
+              qv[4 * k] = v.x; qv[4 * k + 1] = v.y;
+              qv[4 * k + 2] = v.z; qv[4 * k + 3] = v.w;
+            }
+          } else {
+            const uint4* src = reinterpret_cast<const uint4*>(
+                static_cast<const uint16_t*>(q_ptr) + qe);
+            bf16x8_to_f32(src[0], qv);
+            bf16x8_to_f32(src[1], qv + 8);
+          }
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r) {
+            const float4* xr = reinterpret_cast<const float4*>(xs)
+                               + r * (kRowWords / 4) + 4 * g;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float4 xv = xr[k];
+              acc[r] = fmaf(xv.x, qv[4 * k], acc[r]);
+              acc[r] = fmaf(xv.y, qv[4 * k + 1], acc[r]);
+              acc[r] = fmaf(xv.z, qv[4 * k + 2], acc[r]);
+              acc[r] = fmaf(xv.w, qv[4 * k + 3], acc[r]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      if (r >= cnt) break;
+      float s;
+      if constexpr (QUANT)  // mul then add, each rounded: no FMA
+        s = __fadd_rn(adds[r], __fmul_rn(__int2float_rn(acc[r]), al));
+      else
+        s = __fadd_rn(adds[r], acc[r]);
+      const int row = t0 + r;
+      if constexpr (PACKED) {
+        arg = min(arg, (flip_bits(__float_as_int(s)) & ~mask) | row);
+      } else if (s < best) {
+        best = s;
+        arg = row;
+      }
+    }
+  }
+
+  if (!live) return;
+  const long long o = (long long)bin * B + qi;
+  if constexpr (PACKED) {
+    out_val[o] = __int_as_float(flip_bits(arg & ~mask));
+    out_idx[o] = (int)(row0 + (arg & mask));
+  } else {
+    out_val[o] = best;
+    out_idx[o] = (int)(row0 + arg);
+  }
+}
+
+// D = 0 selects binned_scan_wide_kernel.
 template <int D>
 cudaError_t launch_scan(const void* q, const void* x, const float* addvec,
                         const float* alpha, float* out_val, int* out_idx,
-                        int B, int n_bins, int bin_size, int idx_bits,
-                        bool quant, bool packed, cudaStream_t stream) {
-  constexpr int per_block = kScanThreads * (128 / D);
+                        int B, int d, int n_bins, int bin_size, int idx_bits,
+                        int kind, bool packed, cudaStream_t stream) {
+  constexpr int per_block = kScanThreads * (D == 0 ? 1 : 128 / (D ? D : 1));
   const dim3 grid(n_bins, (B + per_block - 1) / per_block);
   const dim3 block(kScanThreads);
-#define GBNNS_SCAN(QU, PK)                                                  \
-  binned_scan_kernel<D, QU, PK><<<grid, block, 0, stream>>>(                \
-      q, x, addvec, alpha, out_val, out_idx, B, bin_size, idx_bits)
-  if (quant) {
-    if (packed) GBNNS_SCAN(true, true); else GBNNS_SCAN(true, false);
-  } else {
-    if (packed) GBNNS_SCAN(false, true); else GBNNS_SCAN(false, false);
+#define GBNNS_SCAN(KI, PK)                                                  \
+  do {                                                                      \
+    if constexpr (D == 0)                                                   \
+      binned_scan_wide_kernel<KI, PK><<<grid, block, 0, stream>>>(          \
+          q, x, addvec, alpha, out_val, out_idx, B, d, bin_size, idx_bits); \
+    else                                                                    \
+      binned_scan_kernel<D, KI, PK><<<grid, block, 0, stream>>>(            \
+          q, x, addvec, alpha, out_val, out_idx, B, bin_size, idx_bits);    \
+  } while (0)
+  switch (kind) {
+    case kBf16:
+      if (packed) GBNNS_SCAN(kBf16, true); else GBNNS_SCAN(kBf16, false);
+      break;
+    case kInt8:
+      if (packed) GBNNS_SCAN(kInt8, true); else GBNNS_SCAN(kInt8, false);
+      break;
+    case kF32:
+      if (packed) GBNNS_SCAN(kF32, true); else GBNNS_SCAN(kF32, false);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
 #undef GBNNS_SCAN
   return cudaGetLastError();
@@ -312,33 +524,36 @@ const char* gbnns_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, d) bf16 or int8; x (n_pad, d) bf16 (prescaled) or int8;
-// addvec (n_pad,) f32; alpha (B,) f32 for int8, else ignored;
-// out_val f32 / out_idx int32, both (n_pad / bin_size, B).
-// d in {16, 32, 64, 128}; n_pad % bin_size == 0; PACKED needs a
-// power-of-two bin_size. Pointers 16-byte aligned.
+// q (B, d) and x (n_pad, d) of one kind: 0 bf16 (x prescaled), 1 int8,
+// 2 f32 (x prescaled); addvec (n_pad,) f32; alpha (B,) f32 for int8, else
+// ignored; out_val f32 / out_idx int32, both (n_pad / bin_size, B).
+// d in {16, 32, 64, 128} or any larger multiple of 16; n_pad % bin_size ==
+// 0; PACKED needs a power-of-two bin_size. Pointers 16-byte aligned.
 int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
                       const float* alpha, float* out_val, int* out_idx,
-                      int B, int n_pad, int d, int bin_size, int quant,
+                      int B, int n_pad, int d, int bin_size, int kind,
                       int packed, void* stream) {
-  if (B <= 0 || bin_size <= 0 || n_pad <= 0 || n_pad % bin_size != 0)
+  if (B <= 0 || bin_size <= 0 || n_pad <= 0 || n_pad % bin_size != 0 ||
+      kind < kBf16 || kind > kF32)
     return cudaErrorInvalidValue;
   int idx_bits = 0;
   while ((1 << idx_bits) < bin_size) ++idx_bits;
   if (packed && (1 << idx_bits) != bin_size) return cudaErrorInvalidValue;
   const int n_bins = n_pad / bin_size;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GBNNS_LAUNCH(DD)                                                   \
+  launch_scan<DD>(q, x, addvec, alpha, out_val, out_idx, B, d, n_bins,     \
+                  bin_size, idx_bits, kind, packed, s)
   switch (d) {
-    case 16: return launch_scan<16>(q, x, addvec, alpha, out_val, out_idx, B,
-                                    n_bins, bin_size, idx_bits, quant, packed, s);
-    case 32: return launch_scan<32>(q, x, addvec, alpha, out_val, out_idx, B,
-                                    n_bins, bin_size, idx_bits, quant, packed, s);
-    case 64: return launch_scan<64>(q, x, addvec, alpha, out_val, out_idx, B,
-                                    n_bins, bin_size, idx_bits, quant, packed, s);
-    case 128: return launch_scan<128>(q, x, addvec, alpha, out_val, out_idx, B,
-                                      n_bins, bin_size, idx_bits, quant, packed, s);
-    default: return cudaErrorInvalidValue;
+    case 16: return GBNNS_LAUNCH(16);
+    case 32: return GBNNS_LAUNCH(32);
+    case 64: return GBNNS_LAUNCH(64);
+    case 128: return GBNNS_LAUNCH(128);
+    default:
+      if (d > 128 && d % 16 == 0) return GBNNS_LAUNCH(0);
+      return cudaErrorInvalidValue;
   }
+#undef GBNNS_LAUNCH
 }
 
 // One merge stage: vals f32 / ids int32 (R, B) bin-major -> out (ck *

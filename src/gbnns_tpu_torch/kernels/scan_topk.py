@@ -9,9 +9,9 @@ bin winners for the exact full-dimension re-rank.
 Scores (smaller is closer; the per-query ``‖q‖²`` term cannot change a
 query's ranking, so it is left out):
 
-* bf16: the corpus is stored prescaled as ``-2x`` (l2) or ``-x`` (ip,
-  angular), an exact exponent shift, and ``score = addvec[x] + x·q`` with
-  ``addvec`` = ``‖x‖²`` (l2) or 0, and +inf on padding rows;
+* bf16 and f32: the corpus is stored prescaled as ``-2x`` (l2) or ``-x``
+  (ip, angular), an exact exponent shift, and ``score = addvec[x] + x·q``
+  with ``addvec`` = ``‖x‖²`` (l2) or 0, and +inf on padding rows;
 * int8: per-tensor corpus scale ``sx``, per-query scale ``sq``, exact int32
   dots and ``score = addvec[x] + dot * alpha[q]``, ``alpha = -2/(sx*sq)``
   (l2) or ``-1/(sx*sq)``; ``addvec`` is the norm of the dequantized corpus.
@@ -25,7 +25,6 @@ tensors. ``launches`` counts the kernel launches of each wrapper.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
@@ -35,25 +34,17 @@ from gbnns_tpu_torch.kernels import _build
 from gbnns_tpu_torch.kernels.distance import exact_fp32
 from gbnns_tpu_torch.search.rerank import rerank
 
-# Feature widths the scan kernel is built for; FusedScanIndex pads the
-# reduced dimension up to one of them with zero columns (exact: zeros add
-# nothing to a dot product).
+# Feature widths the register-resident scan kernel is built for; a wider
+# reduced dimension takes the wide kernel at any multiple of 16.
+# FusedScanIndex pads the reduced dimension with zero columns (exact: zeros
+# add nothing to a dot product).
 SCAN_WIDTHS = (16, 32, 64, 128)
+# The scan's element type -> the ``kind`` of the C interface.
+_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 _INT_MAX = 0x7FFFFFFF
 
-launches = {"binned_scan": 0, "merge_topc": 0}
-_launch_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _launch_lock:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count_launch(name: str) -> None:
-    with _launch_lock:
-        launches[name] += 1
+launches = _build.LaunchCounts("binned_scan", "merge_topc")
+reset_launches = launches.reset
 
 
 def _round_up(a: int, m: int) -> int:
@@ -61,12 +52,16 @@ def _round_up(a: int, m: int) -> int:
 
 
 def scan_width(d: int) -> int:
-    """The smallest kernel width that holds ``d`` reduced dimensions."""
+    """The smallest kernel width that holds ``d`` reduced dimensions: one of
+    ``SCAN_WIDTHS``, or ``d`` rounded up to 16 past the last of them."""
     for w in SCAN_WIDTHS:
         if d <= w:
             return w
-    raise ValueError(f"reduced dimension {d} > {SCAN_WIDTHS[-1]}: wider scans "
-                     "are not built (see ROADMAP.md)")
+    return _round_up(d, 16)
+
+
+def _kernel_width(d: int) -> bool:
+    return d in SCAN_WIDTHS or (d > SCAN_WIDTHS[-1] and d % 16 == 0)
 
 
 def _flip(bits: torch.Tensor) -> torch.Tensor:
@@ -82,16 +77,8 @@ def _library():
         lib.gbnns_binned_scan.restype = i
         lib.gbnns_merge_topc_stage.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gbnns_merge_topc_stage.restype = i
-        lib.gbnns_error_string.argtypes = [i]
-        lib.gbnns_error_string.restype = ctypes.c_char_p
         lib._gbnns_bound = True
     return lib
-
-
-def _check(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.gbnns_error_string(err).decode()}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -103,8 +90,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _check_scan_args(q, x, addvec, alpha, bin_size, packed) -> bool:
     """Validate the scan's inputs; returns whether it is the int8 scan."""
     quant = x.dtype == torch.int8
-    if x.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"scan corpus must be bfloat16 or int8, got {x.dtype}")
+    if x.dtype not in _KINDS:
+        raise TypeError(f"scan corpus must be bfloat16, int8 or float32, "
+                        f"got {x.dtype}")
     if q.dtype != x.dtype:
         raise TypeError(f"queries {q.dtype} do not match corpus {x.dtype}")
     others = [q, addvec] + ([] if alpha is None else [alpha])
@@ -129,7 +117,8 @@ def binned_scan_plain(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     """Plain PyTorch version of ``binned_scan`` (same contract).
 
     The dots run as fp32 products with TF32 off: exact products of bf16
-    inputs, and exact integer sums for int8 (|dot| <= d * 127² < 2^24)."""
+    inputs, fp32 products of fp32 inputs, and exact integer sums for int8
+    (|dot| <= d * 127² < 2^24 for d < 1040)."""
     quant = _check_scan_args(q, x, addvec, alpha, bin_size, packed)
     B = q.shape[0]
     n_bins = x.shape[0] // bin_size
@@ -166,10 +155,12 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     """Bin winners of the full scan, bin-major: ``(vals (n_bins, B) f32,
     ids (n_bins, B) int32)``, ids being corpus rows.
 
-    q (B, d) and x (n_pad, d) are both bfloat16 (x prescaled) or both int8;
-    addvec (n_pad,) f32; alpha (B,) f32 for int8 only. ``packed`` selects on
-    an int key with the score quantized to 2^-13 relative (ties to the lower
-    row). CPU tensors take ``binned_scan_plain``; CUDA tensors launch K1.
+    q (B, d) and x (n_pad, d) are both bfloat16 or both float32 (x
+    prescaled), or both int8; addvec (n_pad,) f32; alpha (B,) f32 for int8
+    only. d is one of ``SCAN_WIDTHS`` or a larger multiple of 16.
+    ``packed`` selects on an int key with the score quantized to 2^-13
+    relative (ties to the lower row). CPU tensors take
+    ``binned_scan_plain``; CUDA tensors launch K1.
     """
     if x.device.type == "cpu":
         return binned_scan_plain(q, x, addvec, alpha, bin_size=bin_size,
@@ -178,8 +169,9 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     if x.device.type != "cuda":
         raise ValueError(f"binned_scan runs on cuda or cpu, not {x.device}")
     B, d = q.shape
-    if d not in SCAN_WIDTHS:
-        raise ValueError(f"the scan kernel takes d in {SCAN_WIDTHS}, got {d}")
+    if not _kernel_width(d):
+        raise ValueError(f"the scan kernel takes d in {SCAN_WIDTHS} or a "
+                         f"larger multiple of 16, got {d}")
     q, x = _aligned(q), _aligned(x)
     addvec = _aligned(addvec.float())
     alpha = _aligned(alpha.float()) if quant else None
@@ -192,10 +184,10 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
         err = lib.gbnns_binned_scan(
             q.data_ptr(), x.data_ptr(), addvec.data_ptr(),
             alpha.data_ptr() if quant else None, vals.data_ptr(),
-            ids.data_ptr(), B, x.shape[0], d, bin_size, int(quant),
+            ids.data_ptr(), B, x.shape[0], d, bin_size, _KINDS[x.dtype],
             int(packed), stream)
-    _check(lib, err, "binned_scan")
-    _count_launch("binned_scan")
+    _build.check(lib, err, "binned_scan")
+    launches.count("binned_scan")
     return vals, ids
 
 
@@ -290,8 +282,8 @@ def merge_topc(vals, ids, c: int, *, rb: int = 512):
             err = lib.gbnns_merge_topc_stage(
                 vals.data_ptr(), ids.data_ptr(), out_v.data_ptr(),
                 out_i.data_ptr(), R, B, rb, ck, stream)
-            _check(lib, err, "merge_topc")
-            _count_launch("merge_topc")
+            _build.check(lib, err, "merge_topc")
+            launches.count("merge_topc")
             vals, ids = out_v, out_i
             if rows == ck:
                 return vals[:c].T, ids[:c].T
@@ -321,13 +313,13 @@ class FusedScanIndex:
                 "still to be ported: see ROADMAP.md")
         if mode != "binned":
             raise ValueError(f"unknown mode {mode!r}")
-        if scan_dtype in ("int8", torch.int8):
-            self.quant = True
-        elif scan_dtype in ("bfloat16", torch.bfloat16):
-            self.quant = False
-        else:
-            raise ValueError(f"scan_dtype must be bfloat16 or int8, "
+        dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8,
+                  "float32": torch.float32}
+        self.scan_dtype = dtypes.get(scan_dtype, scan_dtype)
+        if self.scan_dtype not in dtypes.values():
+            raise ValueError(f"scan_dtype must be bfloat16, int8 or float32, "
                              f"got {scan_dtype!r}")
+        self.quant = self.scan_dtype == torch.int8
         if rerank_dtype in ("float32", torch.float32):
             rerank_dtype = torch.float32
         elif rerank_dtype in ("bfloat16", torch.bfloat16):
@@ -372,9 +364,9 @@ class FusedScanIndex:
                 add[:n] = (xq * xq).sum(-1)
             self.x_lo = torch.from_numpy(xi.astype(np.int8)).to(self.device)
         else:
-            # prescaled storage: -2x / -x is exact in bf16
+            # prescaled storage: -2x / -x is exact in bf16 and f32
             self.x_lo = (torch.from_numpy(self.dot_scale * lo_pad)
-                         .to(torch.bfloat16).to(self.device))
+                         .to(self.scan_dtype).to(self.device))
         self.d_lo = d_lo
         self.addvec = torch.from_numpy(add.astype(np.float32)).to(self.device)
         # bf16 re-rank halves the candidate gather; the norms stay f32 and
@@ -385,7 +377,7 @@ class FusedScanIndex:
 
     def scan_queries(self, ql: torch.Tensor):
         """Queries in the scan's type and width, and the int8 dequant
-        factor per query (None for bf16)."""
+        factor per query (None for bf16 and f32)."""
         width = self.x_lo.shape[1]
         if ql.shape[1] != self.d_lo:
             raise ValueError(f"queries have {ql.shape[1]} reduced dims, the "
@@ -393,7 +385,7 @@ class FusedScanIndex:
         if width != self.d_lo:
             ql = torch.nn.functional.pad(ql, (0, width - self.d_lo))
         if not self.quant:
-            return ql.to(torch.bfloat16), None
+            return ql.to(self.scan_dtype), None
         # per-query symmetric int8: a positive per-query scale on the dot
         # term cannot change that query's ranking
         sq = 127.0 / torch.clamp(ql.abs().amax(dim=1), min=1e-30)

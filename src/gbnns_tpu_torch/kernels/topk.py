@@ -43,6 +43,18 @@ def knn_chunked(q: torch.Tensor, x: torch.Tensor, k: int, *,
     return best_d, best_i.to(torch.int32)
 
 
+def knn_fused(q: torch.Tensor, x: torch.Tensor, k: int, *,
+              metric: str = "l2", chunk: int = 65536, q_chunk: int = 8192):
+    """kNN of a large query block ``q (nq, d)`` against ``x (n, d)``: the
+    corpus sweep of ``knn_chunked`` over query chunks of ``q_chunk``, so
+    scores stay O(q_chunk * chunk). The exact backend of the graph build.
+    Returns ``(dists (nq, k) f32, ids (nq, k) int32)`` on their device."""
+    outs = [knn_chunked(q[off:off + q_chunk], x, k, metric=metric,
+                        chunk=chunk)
+            for off in range(0, q.shape[0], q_chunk)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
 def knn(q, x, k: int, *, metric: str = "l2", chunk: int = 65536,
         q_chunk: int | None = None, device=None):
     """Host-level wrapper: accepts numpy arrays or tensors, moves them to
@@ -54,8 +66,5 @@ def knn(q, x, k: int, *, metric: str = "l2", chunk: int = 65536,
                         device=dev).float()
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                         device=dev).float()
-    nq = q.shape[0]
-    step = nq if q_chunk is None else q_chunk
-    outs = [knn_chunked(q[off:off + step], x, k, metric=metric, chunk=chunk)
-            for off in range(0, nq, step)]
-    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    return knn_fused(q, x, k, metric=metric, chunk=chunk,
+                     q_chunk=q_chunk or max(1, q.shape[0]))

@@ -9,7 +9,8 @@ copy and answers its requests, so the next batch is issued while the last
 one finishes. Stdlib only (``http.server``).
 
 Start:  python -m gbnns_tpu_torch.cli serve --base base.fvecs
-                    [--base-lo base_lo.fvecs | --proj proj.npz] --port 8390
+                    [--base-lo base_lo.fvecs | --proj proj.npz]
+                    [--graph graph.npy [--centroids cents.npz]] --port 8390
 Query:  curl -d '{"queries": [[...]], "k": 10}' localhost:8390/search
 
 Two wire protocols (connections are HTTP/1.1 persistent):
@@ -61,8 +62,13 @@ class SearchService:
     """Device-resident index + micro-batching dispatcher.
 
     ``engine``: "fused" (binned-scan kernels + exact re-rank; ``c`` is the
-    recall knob) or "flat". ``projection``: optional callable full-d →
-    low-d applied to the uploaded query batch on the device.
+    recall knob), "flat", "graph_pallas" (``GraphIndex``: the payload
+    walker on kernel K3, centroid entries, re-rank; ``ef`` is the recall
+    knob) or "graph" (the plain walker from strided entries, re-rank). The
+    graph engines need ``graph``, the (n, K) adjacency; ``centroids_path``
+    loads staged ``CentroidEntries`` for "graph_pallas" instead of fitting
+    them. ``projection``: optional callable full-d → low-d applied to the
+    uploaded query batch on the device.
     """
 
     def __init__(self, base, base_lo=None, graph=None, *, metric="l2",
@@ -73,13 +79,10 @@ class SearchService:
                  h2d_dtype: str = "float32", device=None):
         from gbnns_tpu_torch.search.flat import FlatIndex
 
-        if engine in ("graph", "graph_pallas") or graph is not None \
-                or centroids_path is not None:
-            raise NotImplementedError(
-                "the graph engines (graph, graph_pallas, centroid entries) "
-                "are still to be ported: ROADMAP.md slice 2")
-        if engine not in ("flat", "fused"):
+        if engine not in ("flat", "fused", "graph", "graph_pallas"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine in ("graph", "graph_pallas") and graph is None:
+            raise ValueError(f"engine={engine!r} requires a graph artifact")
         if h2d_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"h2d_dtype must be float32|bfloat16, "
                              f"got {h2d_dtype!r}")
@@ -98,12 +101,37 @@ class SearchService:
 
         self.flat = FlatIndex(base, base_lo, metric=metric, device=self.device)
         self.fused = None
+        self.gidx = None
+        self.graph = None
         if engine == "fused":
             from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
 
             self.fused = FusedScanIndex(base, base_lo, metric=metric,
                                         scan_dtype=scan_dtype,
                                         device=self.device)
+        elif engine == "graph_pallas":
+            from gbnns_tpu_torch.search.entries import CentroidEntries
+            from gbnns_tpu_torch.search.graph_index import GraphIndex
+
+            entries = (CentroidEntries.load(centroids_path,
+                                            device=self.device)
+                       if centroids_path else None)
+            self.gidx = GraphIndex.build(
+                base, base_lo, metric=metric,
+                ncent=max(64, min(4096, np.asarray(base).shape[0] // 256)),
+                graph=np.asarray(graph, np.int32), entries=entries,
+                device=self.device)
+        elif engine == "graph":
+            from gbnns_tpu_torch.search.walker import default_entry_ids
+
+            self.graph = torch.tensor(np.asarray(graph, np.int32),
+                                      device=self.device)
+            self.base_lo_f32 = torch.from_numpy(np.asarray(
+                base if base_lo is None else base_lo, np.float32)
+            ).to(self.device)
+            # never more entries than the pool: a search uses max(ef, k)
+            self.entries = default_entry_ids(self.graph.shape[0],
+                                             min(32, ef)).to(self.device)
         self._d_full = np.asarray(base).shape[1]
         self._d_lo = (np.asarray(base_lo).shape[1]
                       if base_lo is not None else None)
@@ -280,6 +308,20 @@ class SearchService:
             # merge=None: kernel K2 on the card, the exact sort on the CPU
             return self.fused.search(queries, queries_lo, k=k,
                                      c=max(self.c, k), merge=None)
+        ef = max(self.ef, k)
+        if self.engine == "graph_pallas":
+            return self.gidx.search(queries, queries_lo, k=k, ef=ef,
+                                    num_entries=min(16, ef))
+        if self.engine == "graph":
+            from gbnns_tpu_torch.search.rerank import rerank
+            from gbnns_tpu_torch.search.walker import beam_search
+
+            res = beam_search(queries if queries_lo is None else queries_lo,
+                              self.base_lo_f32, self.graph, self.entries,
+                              ef=ef, metric=self.metric)
+            return rerank(queries, self.flat.base_full, res.ids, k,
+                          metric=self.metric,
+                          base_sqnorms=self.flat.base_full_sqnorms)
         return self.flat.search(queries, queries_lo, k=k, c=max(self.c, k))
 
     def stop(self, timeout: float = 5.0) -> None:

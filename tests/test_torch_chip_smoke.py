@@ -1,7 +1,8 @@
 """chip_smoke.py's phases rehearsed on the CPU at a small size: the corpus
 of n = 20,000 with its cached ground truth and projection, the fused service
-in bf16 and int8 over submit() and HTTP, and a teardown that leaves no
-thread. (The kernel phase and the launch and recall checks need the card.)"""
+in bf16, int8 and f32 over submit() and HTTP, the graph build, the walker
+checks, the graph_pallas service, and a teardown that leaves no thread.
+(The kernel phases and the launch and recall checks need the card.)"""
 
 import importlib.util
 import pathlib
@@ -25,13 +26,19 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
     before = set(threading.enumerate())
     records = chip_smoke.main(
         "cpu", n=20000, nq=1024,
-        proj_file="bench_proj_n20000_d128x32_s600_seed1.npz", targets=False)
+        proj_file="bench_proj_n20000_d128x32_s600_seed1.npz", targets=False,
+        timed=2)
     out = capsys.readouterr().out
     assert "ground truth: 1024/1024 rows equal" in out
-    assert "1.0000 of rows equal to a direct search" in out
+    assert out.count("1.0000 of rows equal to a direct search") == 4
+    assert "reachable from the walker's entries: 20000/20000" in out
+    assert out.count("identical True") == 2
+    for ef in (32, 48, 64):
+        assert f"graph_pallas ef={ef}: R@1=" in out
     assert set(records) == {"binned_scan[bfloat16]", "binned_scan[int8]",
+                            "binned_scan[float32]",
                             "merge_topc[bfloat16,c=12]",
-                            "merge_topc[int8,c=16]"}
+                            "merge_topc[int8,c=16]", "row_gather"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
     assert set(threading.enumerate()) <= before
 
@@ -48,3 +55,62 @@ def test_check_raises(chip_smoke):
     chip_smoke.check(True, "fine")
     with pytest.raises(chip_smoke.SmokeFailure, match="broken"):
         chip_smoke.check(False, "broken")
+
+
+def test_hop_breakdown_runs_its_stages(chip_smoke, monkeypatch, capsys):
+    """The card-only breakdown of a graph request, with the CUDA-event timer
+    replaced by a call that only runs each stage."""
+    import numpy as np
+
+    from gbnns_tpu_torch.build.knn_graph import build_knn_graph
+    from gbnns_tpu_torch.dimred.train import (load_projection, project,
+                                              projector)
+    from gbnns_tpu_torch.io.synthetic import SyntheticSpec, make_synthetic
+    from gbnns_tpu_torch.serve import SearchService
+
+    data = make_synthetic(SyntheticSpec(n_base=2048, n_query=64, dim=128,
+                                        n_clusters=16, seed=3))
+    trained = load_projection(
+        str(ROOT / "results" / "bench_proj_n20000_d128x32_s600_seed1.npz"),
+        device="cpu")
+    base_lo = project(trained, data["base"])
+    graph = build_knn_graph(base_lo, 12, device="cpu")
+    svc = SearchService(data["base"], base_lo, graph, engine="graph_pallas",
+                        projection=projector(trained), device="cpu")
+    try:
+        monkeypatch.setattr(chip_smoke, "time_ms",
+                            lambda fn, iters=5: (fn(), 1.0)[1])
+        out = chip_smoke.hop_breakdown(svc, data["query"], trained,
+                                       svc.device)
+    finally:
+        svc.stop()
+    assert out["hops"] > 0 and np.isfinite(out["walk_ms"])
+    assert capsys.readouterr().out.count("hop stage") == 6
+
+
+
+def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
+    """A thread alive before the run (another test's daemon, say) is not the
+    run's to stop; a thread the run leaves behind fails it."""
+    stop = threading.Event()
+    foreign = threading.Thread(target=stop.wait, daemon=True)
+    foreign.start()
+    monkeypatch.setattr(chip_smoke, "load_data", lambda *a: (None,) * 5)
+    monkeypatch.setattr(chip_smoke, "serve_fused",
+                        lambda *a, **k: {"r10": 1.0})
+    monkeypatch.setattr(chip_smoke, "graph_build",
+                        lambda *a, **k: (None, None, None))
+    monkeypatch.setattr(chip_smoke, "walker_checks", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "serve_graph", lambda *a, **k: None)
+    try:
+        chip_smoke.main("cpu", targets=False)
+        left = threading.Thread(target=stop.wait, daemon=True)
+        monkeypatch.setattr(chip_smoke, "serve_graph",
+                            lambda *a, **k: left.start())
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match="threads still running"):
+            chip_smoke.main("cpu", targets=False)
+    finally:
+        stop.set()
+        foreign.join(5)
+    assert not foreign.is_alive()

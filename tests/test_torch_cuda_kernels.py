@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 binned_scan, K2 merge_topc) against their plain
-PyTorch versions on the same card inputs.
+"""The port's CUDA kernels (K1 binned_scan, K2 merge_topc, K3 row_gather)
+against their plain PyTorch versions on the same card inputs, and the walks
+and indexes built on them against the same on the CPU.
 
 These need an NVIDIA GPU and nvcc, so they carry the ``cuda`` marker and skip
 without a card. On a machine with one (which has no JAX), run them with
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from gbnns_tpu_torch.kernels import gather
 from gbnns_tpu_torch.kernels import scan_topk as st
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +64,29 @@ def test_binned_scan_kernel_matches_plain(dev, d, quant, packed, bin_size):
                             packed=packed, rtol=1e-5)
     assert rep["ok"], rep
     if quant:  # exact integer dots and the same two roundings: bit-equal
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind,d", [("float32", 16), ("float32", 32),
+                                    ("float32", 128), ("float32", 160),
+                                    ("bfloat16", 160), ("bfloat16", 256),
+                                    ("bfloat16", 208), ("int8", 160),
+                                    ("int8", 256)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fp32_and_wide_scans_match_plain(dev, kind, d, packed):
+    """The f32 kind, and widths above 128 (the wide kernel)."""
+    n, B = 4096, 300
+    q, x, add, alpha = (t.to(dev) if t is not None else None
+                        for t in _scan_inputs(n, d, B, kind == "int8"))
+    if kind == "float32":
+        q, x = q.float(), x.float()
+    add[-5:] = float("inf")
+    got = st.binned_scan(q, x, add, alpha, bin_size=1024, packed=packed)
+    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=1024, packed=packed)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=1024,
+                            packed=packed, rtol=1e-5)
+    assert rep["ok"], rep
+    if kind == "int8":
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
@@ -124,12 +149,133 @@ def test_fused_index_card_matches_cpu(dev, scan_dtype):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("scan_dtype,d_lo", [("float32", 24),
+                                              ("bfloat16", 160)])
+def test_fp32_and_wide_fused_index_card_matches_cpu(dev, scan_dtype, d_lo):
+    rng = np.random.default_rng(6)
+    base = rng.normal(size=(20000, 48)).astype(np.float32)
+    query = rng.normal(size=(300, 48)).astype(np.float32)
+    w = rng.normal(size=(48, d_lo)).astype(np.float32)
+    kw = dict(scan_dtype=scan_dtype, chunk=1024)
+    gpu = st.FusedScanIndex(base, base @ w, device="cuda", **kw)
+    cpu = st.FusedScanIndex(base, base @ w, device="cpu", **kw)
+    assert gpu.x_lo.shape[1] == max(32, d_lo)
+    gi, gd = gpu.search(query, query @ w, k=10, c=32)
+    ci, cd = cpu.search(query, query @ w, k=10, c=32, merge="pallas")
+    assert (gi.cpu() == ci).all(dim=1).float().mean().item() >= 0.99
+    np.testing.assert_allclose(gd.cpu().numpy(), cd.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _payload_rows(n, W, seed=0):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 1 << 32, size=(n, W), dtype=np.uint64)
+    return torch.from_numpy(bits.astype(np.uint32).view(np.float32))
+
+
+@pytest.mark.parametrize("R", [1, 31, 65536])
+@pytest.mark.parametrize("W", [4, 544, 1056])
+def test_row_gather_kernel_is_bit_exact(dev, R, W):
+    n = 5000
+    payload = _payload_rows(n, W).to(dev)  # NaN and inf patterns included
+    rng = np.random.default_rng(R + W)
+    idx = rng.integers(0, n, size=R).astype(np.int32)
+    idx[0] = n - 1
+    idx[-1] = 0
+    idx = torch.from_numpy(idx).to(dev)
+    before = gather.launches["row_gather"]
+    got = gather.row_gather(payload, idx)
+    torch.cuda.synchronize()
+    assert gather.launches["row_gather"] == before + 1
+    ref = gather.row_gather_plain(payload, idx)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_row_gather_kernel_rejects_bad_ids(dev):
+    payload = _payload_rows(100, 32).to(dev)
+    before = gather.launches["row_gather"]
+    for bad in ([0, 100], [-1, 5]):
+        with pytest.raises(IndexError):
+            gather.row_gather(payload,
+                              torch.tensor(bad, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        gather.row_gather(payload[:, :30].contiguous(),
+                          torch.zeros(2, dtype=torch.int32, device=dev))
+    assert gather.launches["row_gather"] == before
+    # unchecked ids outside [0, n) read nothing and give zero rows
+    out = gather.row_gather(payload, torch.tensor([100, 3], dtype=torch.int32,
+                                                  device=dev), check_ids=False)
+    torch.cuda.synchronize()
+    assert not out[0].view(torch.int32).any()
+    assert torch.equal(out[1].view(torch.int32), payload[3].view(torch.int32))
+
+
+def _walk_inputs(n=20000, d=32, K=16, B=500, seed=7):
+    from gbnns_tpu_torch.build.knn_graph import build_knn_graph
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(40, d)).astype(np.float32) * 4
+    base = (centers[rng.integers(0, 40, n)]
+            + rng.normal(size=(n, d)).astype(np.float32))
+    query = (centers[rng.integers(0, 40, B)]
+             + rng.normal(size=(B, d)).astype(np.float32))
+    graph = build_knn_graph(base, K, backend="fused", device="cuda")
+    return base, query, graph
+
+
+def test_payload_walker_on_the_card(dev):
+    """K3 in the walk: the same walk as with the plain gather, the f32
+    payload walk identical to the plain walker's, and the card's walk
+    agreeing with the CPU's."""
+    from gbnns_tpu_torch.search import walker, walker_payload as wp
+
+    base, query, graph = _walk_inputs()
+    entries = walker.default_entry_ids(base.shape[0], 16)
+    q, b = torch.from_numpy(query).to(dev), torch.from_numpy(base).to(dev)
+    for vec_dtype in ("bfloat16", "float32"):
+        payload = wp.pack_hop_payload(graph, base, vec_dtype=vec_dtype,
+                                      device=dev)
+        before = gather.launches["row_gather"]
+        got = wp.beam_search_payload(q, payload, b, entries, ef=48)
+        assert gather.launches["row_gather"] - before == got.hops
+        ref = wp.beam_search_payload(q, payload, b, entries, ef=48,
+                                     gather=gather.row_gather_plain)
+        for f in ("ids", "dists", "n_dist"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        assert got.hops == ref.hops
+    plain = walker.beam_search(q, b, torch.from_numpy(graph).to(dev), entries,
+                               ef=48)
+    assert torch.equal(got.ids, plain.ids) and torch.equal(got.dists,
+                                                           plain.dists)
+    assert torch.equal(got.n_dist, plain.n_dist) and got.hops == plain.hops
+    cpu = walker.beam_search(torch.from_numpy(query), torch.from_numpy(base),
+                             torch.from_numpy(graph), entries, ef=48)
+    assert (plain.ids.cpu() == cpu.ids).all(dim=1).float().mean() >= 0.98
+
+
+def test_graph_index_on_the_card(dev):
+    from gbnns_tpu_torch.eval.recall import exact_ground_truth, recall_at_k
+    from gbnns_tpu_torch.search.graph_index import GraphIndex
+
+    base, query, graph = _walk_inputs()
+    idx = GraphIndex.build(base, K=16, graph=graph, ncent=64, device=dev)
+    before = gather.launches["row_gather"]
+    ids, dists = idx.search(query, k=10, ef=48)
+    torch.cuda.synchronize()
+    assert gather.launches["row_gather"] > before
+    gt = exact_ground_truth(query, base, k=10, device=dev)
+    assert recall_at_k(ids.cpu().numpy(), gt, 10) > 0.9
+    assert torch.isfinite(dists).all()
+
+
 def test_built_library_is_reused(dev):
     from gbnns_tpu_torch.kernels import _build
 
     st._library()
-    path = _build.library_path("scan_topk")
-    stamp = path.stat().st_mtime_ns
-    _build.build(["scan_topk"])          # already built: no nvcc
-    assert path.stat().st_mtime_ns == stamp
-    assert path.parent.parent.name == ".kernel_build"
+    gather._library()
+    for name in ("scan_topk", "gather"):
+        path = _build.library_path(name)
+        stamp = path.stat().st_mtime_ns
+        _build.build([name])             # already built: no nvcc
+        assert path.stat().st_mtime_ns == stamp
+        assert path.parent.parent.name == ".kernel_build"

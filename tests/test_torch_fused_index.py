@@ -4,6 +4,7 @@ Both get the same ``chunk``, which sets the count of padding bins."""
 
 import numpy as np
 import pytest
+import torch
 
 from gbnns_tpu.kernels.scan_topk_pallas import FusedScanIndex as JaxIndex
 from gbnns_tpu_torch.eval.recall import recall_at_k
@@ -79,14 +80,44 @@ def test_padding_is_never_returned():
     assert 0 <= ids.min() and ids.max() < 700
 
 
+@pytest.mark.parametrize("scan_dtype,d_lo", [("float32", 32),
+                                              ("bfloat16", 160),
+                                              ("bfloat16", 256)])
+@pytest.mark.parametrize("merge", ["pallas", "exact"])
+def test_fp32_and_wide_scans_match_jax(fixture_data, fixture_gt, scan_dtype,
+                                       d_lo, merge):
+    """An fp32 scan and reduced widths above 128, which JAX's index takes,
+    agree with it at the tolerances of the bf16 and int8 cases."""
+    base, query, blo, qlo = _projected(fixture_data, d_lo)
+    ref = JaxIndex(base, blo, chunk=1024, scan_dtype=scan_dtype).search(
+        query, qlo, k=10, c=16, merge=merge)
+    mine = FusedScanIndex(base, blo, chunk=1024, scan_dtype=scan_dtype,
+                          device="cpu")
+    assert mine.x_lo.dtype == getattr(torch, scan_dtype)
+    assert mine.x_lo.shape[1] == max(32, d_lo)
+    _agree(mine.search(query, qlo, k=10, c=16, merge=merge), ref, fixture_gt)
+
+
+def test_float32_and_width_200_are_taken():
+    """Once refused: an fp32 scan, and a width of 200 (padded to 208)."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(300, 8)).astype(np.float32)
+    idx = FusedScanIndex(x, scan_dtype="float32", device="cpu")
+    assert idx.x_lo.dtype == torch.float32 and idx.x_lo.shape[1] == 16
+    ids, _ = idx.search(x[:5], k=1, c=8)
+    assert ids[:, 0].tolist() == list(range(5))
+    wide = rng.normal(size=(300, 200)).astype(np.float32)
+    idx = FusedScanIndex(wide, device="cpu")
+    assert idx.x_lo.shape[1] == 208
+    assert not idx.x_lo[:, 200:].any()
+    ids, _ = idx.search(wide[:5], k=1, c=8)
+    assert ids[:, 0].tolist() == list(range(5))
+
+
 def test_rejected_options():
     x = np.zeros((64, 8), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FusedScanIndex(x, mode="shifted", device="cpu")
-    with pytest.raises(ValueError):
-        FusedScanIndex(x, scan_dtype="float32", device="cpu")
-    with pytest.raises(ValueError):
-        FusedScanIndex(np.zeros((64, 200), np.float32), device="cpu")
     idx = FusedScanIndex(x, device="cpu")
     with pytest.raises(ValueError):
         idx.candidates(np.zeros((2, 8), np.float32), merge="fast")

@@ -92,8 +92,48 @@ def _ctor_projection(base):
                                "bench_proj_n3000_d128x32_s20_sel_seed1.npz"))
 
 
+def _graph(base):
+    return np.tile(np.arange(8, dtype=np.int32), (base.shape[0], 1))
+
+
+def _ctor_graph_build(base):
+    from gbnns_tpu_torch.build.knn_graph import build_knn_graph
+    return build_knn_graph(base, 8, backend="fused")
+
+
+def _ctor_kmeans(base):
+    from gbnns_tpu_torch.build.kmeans import kmeans_fit
+    return kmeans_fit(base, 8)
+
+
+def _ctor_entries(base):
+    from gbnns_tpu_torch.search.entries import CentroidEntries
+    return CentroidEntries.build(base, ncent=8)
+
+
+def _ctor_payload(base):
+    from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
+    return pack_hop_payload(_graph(base), base)
+
+
+def _ctor_graph_index(base):
+    from gbnns_tpu_torch.search.graph_index import GraphIndex
+    return GraphIndex.build(base, K=8, graph=_graph(base), ncent=None)
+
+
+def _ctor_graph_services(base):
+    from gbnns_tpu_torch.serve import SearchService
+    for engine in ("graph", "graph_pallas"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SearchService(base, graph=_graph(base), engine=engine)
+    raise RuntimeError("no CUDA device: both graph engines refused")
+
+
 @pytest.mark.parametrize("ctor", [_ctor_fused, _ctor_flat, _ctor_service,
-                                  _ctor_knn, _ctor_projection])
+                                  _ctor_knn, _ctor_projection,
+                                  _ctor_graph_build, _ctor_kmeans,
+                                  _ctor_entries, _ctor_payload,
+                                  _ctor_graph_index, _ctor_graph_services])
 def test_entry_points_raise_without_cuda(ctor):
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -117,6 +157,18 @@ def test_cli_serve_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "--base", str(tmp_path / "base.fvecs"),
                   "--engine", "fused", "--no-warm"])
+
+
+def test_cli_build_raises_without_cuda(tmp_path):
+    _no_cuda()
+    from gbnns_tpu_torch import cli
+    from gbnns_tpu_torch.io.vecs import write_fvecs
+
+    write_fvecs(str(tmp_path / "base.fvecs"), _small())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["build", "--base", str(tmp_path / "base.fvecs"), "--k",
+                  "4", "--out", str(tmp_path / "g.npy")])
+    assert not (tmp_path / "g.npy").exists()
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -181,11 +181,22 @@ def test_dispatch_errors_reach_the_caller(fixture_data):
 
 
 def test_graph_engines_are_not_ported(fixture_data):
-    base, _ = fixture_data
-    for kw in (dict(engine="graph"), dict(engine="graph_pallas"),
-               dict(graph=np.zeros((2048, 4), np.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SearchService(base, device="cpu", **kw)
+    """The graph engines are ported now (tests/test_torch_graph_serve.py):
+    without a graph they refuse, and a graph given to a scan engine is
+    ignored, as in the JAX package."""
+    base, query = fixture_data
+    for engine in ("graph", "graph_pallas"):
+        with pytest.raises(ValueError, match="requires a graph"):
+            SearchService(base, engine=engine, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        SearchService(base, engine="ivf", device="cpu")
+    svc = SearchService(base, graph=np.zeros((2048, 4), np.int32),
+                        engine="fused", c=16, device="cpu")
+    try:
+        assert svc.gidx is None and svc.graph is None
+        assert svc.submit(query[:2], None, 5)[0].shape == (2, 5)
+    finally:
+        svc.stop()
 
 
 def test_h2d_bfloat16_and_projection(fixture_data):
@@ -218,10 +229,11 @@ def test_cli_builds_the_service(tmp_path, fixture_data):
         assert svc.warm(k=10) == 5
     finally:
         svc.stop()
-    with pytest.raises(NotImplementedError):
-        cli.build_service(_parse(args + ["--graph", "g.npy"]))
+    with pytest.raises(ValueError, match="requires a graph"):
+        cli.build_service(_parse(args[:-4] + ["--engine", "graph",
+                                              "--device", "cpu"]))
     with pytest.raises(SystemExit):
-        _parse(["serve", "--engine", "graph"])
+        _parse(["serve", "--engine", "ivf"])
 
 
 def _parse(argv):
