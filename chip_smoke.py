@@ -17,19 +17,24 @@ each printing its wall time:
 3. each scan kernel (K1 binned_scan in bf16, int8 and f32, and at a reduced
    width of 160; K2 merge_topc) against its plain PyTorch version on the
    serving shapes, with its time, the plain version's, one PyTorch library
-   call's and the least time the card could take (bound);
-4. serving: SearchService(engine="fused") in bf16 (c = 12), int8 (c = 16)
-   and f32 (c = 12): requests through submit() and HTTP /search,
-   /search_raw on an ephemeral localhost port, then the 16,384 queries, with
-   R@1, R@10 and QPS (median of ten requests), the recall run with the
-   launch counts set to 0 before and read after; R@10 must lie within 0.005
-   of the JAX reference's rows on these inputs (f32: not below bf16's);
+   call's and the least time the card could take (bound); the f32 kind, on
+   no engine of the service, then answers all queries through
+   FusedScanIndex.search, with its launch count and R@10;
+4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
+   (c = 16): requests through submit() and HTTP /search, /search_raw on an
+   ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
+   QPS (median of ten requests), the recall run with the launch counts set
+   to 0 before and read after; R@10 must lie within 0.005 of the JAX
+   reference's rows on these inputs;
 5. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
-   and the reachability repair; every node reachable from the walker's
-   entries; edge overlap with the exact build's graph on 1,024 sampled
-   nodes at least the JAX package's 0.7874 less 0.02; centroid entries
-   (n / 256 centroids) and the bf16 hop payload;
+   and the reachability repair, and the launch counts set to 0 before and
+   read after; K1 in its packed form and K2 at c = K + 1 against their
+   plain versions on one 8,192-node chunk of the build's own operands;
+   every node reachable from the walker's entries; edge overlap with the
+   exact build's graph on 1,024 sampled nodes at least the JAX package's
+   0.7874 less 0.02; centroid entries (n / 256 centroids) and the bf16 hop
+   payload;
 6. K3 row_gather against its plain version on 65,536 rows of that payload;
 7. walker vs plain: 1,024 queries walked with K3 and with the plain
    gather, identical; the f32-payload walk identical to the plain walker's;
@@ -75,6 +80,7 @@ OVERLAP_MIN = 0.7874 - 0.02
 GRAPH_R10_MIN = 0.95
 GRAPH_K = 32
 GRAPH_EFS = (32, 48, 64)
+BUILD_CHUNK = 8192    # the fused build's node chunk (build_knn_graph's)
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 # dense tensor cores (bf16, int8); fp32 on the CUDA cores
 PEAK_OPS_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
@@ -172,30 +178,28 @@ def load_data(device, n: int, nq: int, proj_file: str):
     return base, query, base_lo, gt, trained
 
 
-def _scan_check(st, idx, qlo, label: str, plain_iters: int = 2):
-    """K1 of ``idx`` on queries ``qlo`` against its plain version; returns
-    the agreement report, the scan's outputs and its record (times, bound;
+def _scan_check(st, args, kw: dict, label: str, plain_iters: int = 2):
+    """K1 on ``args = (q, x, addvec, alpha)`` and options ``kw`` against its
+    plain version; returns the scan's outputs and its record (times, bound;
     the library yardstick is filled by the caller)."""
     import torch
 
-    q_scan, alpha = idx.scan_queries(qlo)
-    args = (q_scan, idx.x_lo, idx.addvec, alpha)
-    kw = dict(bin_size=idx.bin_size, packed=idx.packed)
     got = st.binned_scan(*args, **kw)
     ref = st.binned_scan_plain(*args, **kw)
     torch.cuda.synchronize()
     rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
     say(f"K1 binned_scan[{label}] vs plain: {rep}")
     check(rep["ok"], f"K1 {label} disagrees with its plain version")
+    q_scan, x, _, alpha = args
     B, d = q_scan.shape
-    n_pad = idx.x_lo.shape[0]
-    n_bins = n_pad // idx.bin_size
+    n_pad = x.shape[0]
+    n_bins = n_pad // kw["bin_size"]
     ms = time_ms(lambda: st.binned_scan(*args, **kw))
     plain_ms = time_ms(lambda: st.binned_scan_plain(*args, **kw), plain_iters)
     el = q_scan.element_size()
     n_bytes = (B * d * el + n_pad * d * el + n_pad * 4
                + (B * 4 if alpha is not None else 0) + n_bins * B * 8)
-    dtype = str(idx.x_lo.dtype).removeprefix("torch.")
+    dtype = str(x.dtype).removeprefix("torch.")
     b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
     rec = dict(name=f"binned_scan[{label}]", route="cuda", source=SCAN_SOURCE,
                replaces=REPLACES["binned_scan"], launches=None,
@@ -203,21 +207,61 @@ def _scan_check(st, idx, qlo, label: str, plain_iters: int = 2):
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
     say(f"K1 [{label}] B={B} n_pad={n_pad} d={d}: {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return got, args, rec
+    return got, rec
 
 
-def kernel_checks(base, query, base_lo, trained, device, records):
-    """Each scan kernel against its plain version on the serving shapes."""
+def _merge_check(st, vals, ids, c: int, label: str) -> dict:
+    """K2 at ``c`` on bin winners ``vals/ids`` against its plain version
+    (equal); returns its record."""
+    import torch
+
+    gm = st.merge_topc(vals, ids, c)
+    rm = st.merge_topc_plain(vals, ids, c)
+    torch.cuda.synchronize()
+    equal = torch.equal(gm[0], rm[0]) and torch.equal(gm[1], rm[1])
+    err = (gm[0] - rm[0]).abs().nan_to_num(0.0).max().item()
+    say(f"K2 merge_topc[{label}] equals plain: {equal}")
+    check(equal, f"K2 ({label}) differs from its plain version")
+    R, B = vals.shape
+    ms = time_ms(lambda: st.merge_topc(vals, ids, c))
+    plain_ms = time_ms(lambda: st.merge_topc_plain(vals, ids, c), 2)
+    vt = vals.T.contiguous()
+    lib_ms = time_ms(lambda: torch.topk(vt, c, dim=1, largest=False))
+    b_ms, b_by = bound_ms(R * B * 8 + B * c * 8, 0.0, "bfloat16")
+    say(f"K2 [{label}] R={R} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"topk {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
+    return dict(name=f"merge_topc[{label}]", route="cuda", source=SCAN_SOURCE,
+                replaces=REPLACES["merge_topc"], launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def _index_args(idx, qlo):
+    """The scan operands and options of FusedScanIndex ``idx`` on ``qlo``."""
+    q_scan, alpha = idx.scan_queries(qlo)
+    return ((q_scan, idx.x_lo, idx.addvec, alpha),
+            dict(bin_size=idx.bin_size, packed=idx.packed))
+
+
+def kernel_checks(base, query, base_lo, gt, trained, device, records,
+                  targets: bool):
+    """Each scan kernel against its plain version on the serving shapes.
+    The f32 kind serves no engine of SearchService (which scans int8 or
+    bf16, as the JAX service does): its launches and recall come from
+    FusedScanIndex(scan_dtype="float32").search of all the queries."""
     import numpy as np
     import torch
 
     from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.eval.recall import recall_at_k
     from gbnns_tpu_torch.kernels import scan_topk as st
 
-    qlo = projector(trained)(torch.from_numpy(query).to(device))
+    qf = torch.from_numpy(query).to(device)
+    qlo = projector(trained)(qf)
     for dtype in ("bfloat16", "int8", "float32"):
         idx = st.FusedScanIndex(base, base_lo, scan_dtype=dtype, device=device)
-        got, args, rec = _scan_check(st, idx, qlo, dtype)
+        args, kw = _index_args(idx, qlo)
+        got, rec = _scan_check(st, args, kw, dtype)
         if dtype == "bfloat16":
             # yardstick: the bare score product, (n_pad, B) bf16 in memory
             rec["library_ms"] = time_ms(
@@ -228,33 +272,26 @@ def kernel_checks(base, query, base_lo, trained, device, records):
         say(f"K1 [{dtype}] library {rec['library_ms']} ms")
         records[rec["name"]] = rec
         if dtype == "float32":
-            del idx, got, args
+            del got, args
+            c = REFERENCE["bfloat16"]["c"]
+            st.reset_launches()
+            ids = idx.search(qf, qlo, k=10, c=c)[0].cpu().numpy()
+            rec["launches"] = st.launches["binned_scan"]
+            r10 = recall_at_k(ids, gt, 10)
+            say(f"FusedScanIndex(float32).search, c={c}: R@10={r10:.4f}, "
+                f"launches binned_scan {rec['launches']}")
+            check(rec["launches"] > 0, "the f32 search launched no K1")
+            if targets:
+                check(r10 >= REFERENCE["bfloat16"]["r10"] - R10_TOL,
+                      f"the f32 scan's R@10 {r10:.4f} falls below bf16's")
+            del idx
             torch.cuda.empty_cache()
             continue
 
         c = REFERENCE[dtype]["c"]
-        vals, ids = got
-        B, n_bins = vals.shape[1], vals.shape[0]
-        gm = st.merge_topc(vals, ids, c)
-        rm = st.merge_topc_plain(vals, ids, c)
-        torch.cuda.synchronize()
-        equal = torch.equal(gm[0], rm[0]) and torch.equal(gm[1], rm[1])
-        err = (gm[0] - rm[0]).abs().nan_to_num(0.0).max().item()
-        say(f"K2 merge_topc[c={c}] equals plain: {equal}")
-        check(equal, f"K2 (c={c}) differs from its plain version")
-        ms = time_ms(lambda: st.merge_topc(vals, ids, c))
-        plain_ms = time_ms(lambda: st.merge_topc_plain(vals, ids, c), 2)
-        vt = vals.T.contiguous()
-        lib_ms = time_ms(lambda: torch.topk(vt, c, dim=1, largest=False))
-        b_ms, b_by = bound_ms(n_bins * B * 8 + B * c * 8, 0.0, "bfloat16")
-        records[f"merge_topc[{dtype},c={c}]"] = dict(
-            name=f"merge_topc[{dtype},c={c}]", route="cuda",
-            source=SCAN_SOURCE, replaces=REPLACES["merge_topc"],
-            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        say(f"K2 [c={c}] R={n_bins} B={B}: {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, topk {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
-        del idx, got, args, vals, ids, vt
+        rec = _merge_check(st, *got, c, f"{dtype},c={c}")
+        records[rec["name"]] = rec
+        del idx, got, args
         torch.cuda.empty_cache()
 
     # a reduced width above 128 takes the wide kernel: a seeded 128→160
@@ -263,8 +300,8 @@ def kernel_checks(base, query, base_lo, trained, device, records):
     wt = torch.from_numpy(w).to(device)
     lo160 = (torch.from_numpy(base).to(device) @ wt).cpu().numpy()
     idx = st.FusedScanIndex(base, lo160, device=device)
-    _scan_check(st, idx, torch.from_numpy(query[:2048]).to(device) @ wt,
-                "bfloat16,d=160")
+    _scan_check(st, *_index_args(
+        idx, torch.from_numpy(query[:2048]).to(device) @ wt), "bfloat16,d=160")
     del idx, lo160
     torch.cuda.empty_cache()
     return records
@@ -330,7 +367,6 @@ def _serve(svc, label: str, query, gt, direct_fn, counters: dict,
     counts."""
     import numpy as np
 
-    from gbnns_tpu_torch.eval.recall import recall_at_k
     from gbnns_tpu_torch.serve import (make_server, pack_raw_request, serve,
                                        unpack_raw_response)
 
@@ -434,8 +470,7 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     from gbnns_tpu_torch.kernels import scan_topk as st
     from gbnns_tpu_torch.serve import SearchService
 
-    # f32 has no reference row: it rides on the bf16 row's c
-    c = REFERENCE.get(dtype, REFERENCE["bfloat16"])["c"]
+    c = REFERENCE[dtype]["c"]
     t0 = time.perf_counter()
     svc = SearchService(base, base_lo, engine="fused", c=c,
                         projection=projector(trained), scan_dtype=dtype,
@@ -453,13 +488,12 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     counts = out["launches"]
     records.setdefault(f"binned_scan[{dtype}]", {})["launches"] = \
         counts["binned_scan"]
-    if dtype in REFERENCE:
-        records.setdefault(f"merge_topc[{dtype},c={c}]", {})["launches"] = \
-            counts["merge_topc"]
+    records.setdefault(f"merge_topc[{dtype},c={c}]", {})["launches"] = \
+        counts["merge_topc"]
     if device.type == "cuda":
         check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
               f"the {dtype} serving run launched no kernel: {counts}")
-    if targets and dtype in REFERENCE:
+    if targets:
         ref = REFERENCE[dtype]["r10"]
         check(abs(out["r10"] - ref) <= R10_TOL,
               f"R@10 {out['r10']:.4f} is not within {R10_TOL} of the "
@@ -467,27 +501,65 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     return out
 
 
-def graph_build(base_lo, device, targets: bool, seconds: dict):
-    """The fused kNN-graph build on the projected corpus, its reachability
-    and its overlap with the exact build; then centroid entries and the
-    bf16 hop payload."""
+def build_chunk_check(base_lo, device, records):
+    """K1 packed and K2 at c = K + 1, as the fused build runs them, against
+    their plain versions on the first node chunk of the build's operands."""
+    import torch
+
+    from gbnns_tpu_torch.build.knn_graph import fused_operands
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    nodes, x, addvec, bin_size = fused_operands(base_lo, GRAPH_K,
+                                                device=device)
+    q = nodes[:BUILD_CHUNK].to(torch.bfloat16)
+    del nodes
+    got, rec = _scan_check(st, (q, x, addvec, None),
+                           dict(bin_size=bin_size, packed=True),
+                           "bfloat16,packed")
+    # yardstick, as for the serving scan: the bare score product
+    rec["library_ms"] = time_ms(lambda: torch.matmul(x, q.T), 3)
+    torch.cuda.empty_cache()
+    records[rec["name"]] = {**rec, **records.get(rec["name"], {})}
+    rec = _merge_check(st, *got, GRAPH_K + 1, f"build,c={GRAPH_K + 1}")
+    records[rec["name"]] = {**rec, **records.get(rec["name"], {})}
+    del got, q, x, addvec
+    torch.cuda.empty_cache()
+
+
+def graph_build(base_lo, device, records, targets: bool):
+    """The fused kNN-graph build on the projected corpus with its launch
+    counts, its kernels at the build's settings against their plain
+    versions, its reachability and its overlap with the exact build; then
+    centroid entries and the bf16 hop payload."""
     import numpy as np
 
     from gbnns_tpu_torch.build.knn_graph import (build_knn_graph,
                                                  forward_reachable)
+    from gbnns_tpu_torch.kernels import scan_topk as st
     from gbnns_tpu_torch.search.entries import CentroidEntries
     from gbnns_tpu_torch.search.walker import default_entry_ids
     from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
 
     n = base_lo.shape[0]
-    t0 = time.perf_counter()
     stats: dict = {}
+    st.reset_launches()
+    t0 = time.perf_counter()
     graph = build_knn_graph(base_lo, GRAPH_K, backend="fused", stats=stats,
-                            device=device)
-    say(f"fused graph {graph.shape}: {time.perf_counter() - t0:.2f} s (sweep "
+                            node_chunk=BUILD_CHUNK, device=device)
+    secs = time.perf_counter() - t0
+    counts = {name: st.launches[name] for name in ("binned_scan",
+                                                   "merge_topc")}
+    say(f"fused graph {graph.shape}: {secs:.2f} s (sweep "
         f"{stats['scan_s']:.2f} s, reverse edges {stats['reverse_s']:.2f} s, "
-        f"ensure_connected {stats['connect_s']:.2f} s)")
-    seconds.update({f"fused_{k}": v for k, v in stats.items()})
+        f"ensure_connected {stats['connect_s']:.2f} s) launches {counts}")
+    records.setdefault("binned_scan[bfloat16,packed]", {})["launches"] = \
+        counts["binned_scan"]
+    records.setdefault(f"merge_topc[build,c={GRAPH_K + 1}]", {})[
+        "launches"] = counts["merge_topc"]
+    if device.type == "cuda":
+        check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
+              f"the fused build launched no kernel: {counts}")
+        build_chunk_check(base_lo, device, records)
     reached = forward_reachable(graph, np.asarray(default_entry_ids(n)))
     say(f"reachable from the walker's entries: {int(reached.sum())}/{n}")
     check(bool(reached.all()), "the graph is not fully reachable")
@@ -498,7 +570,6 @@ def graph_build(base_lo, device, targets: bool, seconds: dict):
     say(f"exact graph: {time.perf_counter() - t0:.2f} s (sweep "
         f"{stats['scan_s']:.2f} s, reverse edges {stats['reverse_s']:.2f} s, "
         f"ensure_connected {stats['connect_s']:.2f} s)")
-    seconds.update({f"exact_{k}": v for k, v in stats.items()})
     rows = np.random.default_rng(0).choice(n, min(1024, n), replace=False)
     overlap = float(np.mean([np.intersect1d(graph[r], exact[r]).size
                              for r in rows]) / GRAPH_K)
@@ -570,7 +641,7 @@ def hop_breakdown(svc, query, trained, device, ef: int = 48) -> dict:
     from gbnns_tpu_torch.kernels.gather import row_gather
     from gbnns_tpu_torch.kernels.distance import squared_norms
     from gbnns_tpu_torch.search.rerank import rerank
-    from gbnns_tpu_torch.search.walker import (intra_dedup_mask, merge_pool,
+    from gbnns_tpu_torch.search.walker import (_dedup, merge_pool,
                                                select_frontier)
     from gbnns_tpu_torch.search.walker_payload import (_hop_dists,
                                                        beam_search_payload)
@@ -591,11 +662,8 @@ def hop_breakdown(svc, query, trained, device, ef: int = 48) -> dict:
                             vec_words=pay.vec_words, bf16=pay.bf16,
                             metric="l2")
 
-    def dedup():
-        dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(dim=-1)
-        dup |= intra_dedup_mask(nbrs)
-        invalid = (nbrs < 0) | dup
-        return invalid, torch.where(invalid, float("inf"), dist)
+    def dedup():   # the walk's own step, beam visited mode
+        return _dedup(nbrs, dist, beam_ids, M=M, intra_dedup=True)
 
     invalid, cand_d = dedup()
     stages = {
@@ -717,20 +785,15 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
         base, query, base_lo, gt, trained = load_data(device, n, nq, proj_file)
     if device.type == "cuda":
         with Phase("kernels vs plain"):
-            kernel_checks(base, query, base_lo, trained, device, records)
-    served = {}
-    for dtype in ("bfloat16", "int8", "float32"):
+            kernel_checks(base, query, base_lo, gt, trained, device,
+                          records, targets)
+    for dtype in ("bfloat16", "int8"):
         with Phase(f"serve fused {dtype}"):
-            served[dtype] = serve_fused(dtype, base, query, base_lo, gt,
-                                        trained, device, records, targets,
-                                        timed)
-    if targets:
-        check(served["float32"]["r10"] >= served["bfloat16"]["r10"] - R10_TOL,
-              "the f32 scan's R@10 falls below the bf16 scan's")
-    build_s: dict = {}
+            serve_fused(dtype, base, query, base_lo, gt, trained, device,
+                        records, targets, timed)
     with Phase("graph build"):
-        graph, entries, payload = graph_build(base_lo, device, targets,
-                                              build_s)
+        graph, entries, payload = graph_build(base_lo, device, records,
+                                              targets)
     if device.type == "cuda":
         with Phase("kernels vs plain: row_gather"):
             gather_check(payload, 4 * query.shape[0], device, records)

@@ -80,17 +80,13 @@ def build_knn_graph(base, K: int, *, metric: str = "l2",
 
 
 @torch.no_grad()
-def _build_fused(base: np.ndarray, K: int, *, metric: str,
-                 node_chunk: int = 16384, verbose: bool = False,
-                 device=None) -> np.ndarray:
-    """Approximate kNN rows by the binned scan: each node chunk scans the
-    whole corpus, one winner per bin of 1024 rows (K1, bf16, packed keys),
-    then the top-(K+1) merge of the bin winners (K2). In-bin collisions lose
-    ~K²/2/(n/1024) edges per node (~0.5 at n = 1M, K = 32); reverse edges
-    and the reachability repair absorb them. Returns (n, K+1) candidate ids
-    (self included)."""
-    from gbnns_tpu_torch.kernels.scan_topk import (binned_scan, merge_topc,
-                                                   scan_width)
+def fused_operands(base: np.ndarray, K: int, *, metric: str = "l2",
+                   device=None):
+    """The fused sweep's scan operands on the device: ``(nodes (n, w) f32,
+    corpus (n_pad, w) bf16 prescaled, addvec (n_pad,) f32, bin_size)``, w
+    the kernel's width. A node chunk's queries are its rows of ``nodes`` in
+    bf16."""
+    from gbnns_tpu_torch.kernels.scan_topk import scan_width
 
     dev = resolve_device(device)
     n, d = base.shape
@@ -114,6 +110,24 @@ def _build_fused(base: np.ndarray, K: int, *, metric: str,
     x = torch.from_numpy(scale * lo_pad).to(torch.bfloat16).to(dev)  # exact
     add_t = torch.from_numpy(add.astype(np.float32)).to(dev)
     q_all = torch.from_numpy(lo_pad[:n]).to(dev)
+    return q_all, x, add_t, bin_size
+
+
+@torch.no_grad()
+def _build_fused(base: np.ndarray, K: int, *, metric: str,
+                 node_chunk: int = 16384, verbose: bool = False,
+                 device=None) -> np.ndarray:
+    """Approximate kNN rows by the binned scan: each node chunk scans the
+    whole corpus, one winner per bin of 1024 rows (K1, bf16, packed keys),
+    then the top-(K+1) merge of the bin winners (K2). In-bin collisions lose
+    ~K²/2/(n/1024) edges per node (~0.5 at n = 1M, K = 32); reverse edges
+    and the reachability repair absorb them. Returns (n, K+1) candidate ids
+    (self included)."""
+    from gbnns_tpu_torch.kernels.scan_topk import binned_scan, merge_topc
+
+    n = base.shape[0]
+    q_all, x, add_t, bin_size = fused_operands(base, K, metric=metric,
+                                               device=device)
     parts = []
     t0 = time.perf_counter()
     for off in range(0, n, node_chunk):

@@ -124,7 +124,7 @@ def make_parser() -> argparse.ArgumentParser:
     sp.add_argument("--port", type=int, default=8390)
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--scan-dtype", default="bfloat16", dest="scan_dtype",
-                    choices=["bfloat16", "int8", "float32"],
+                    choices=["bfloat16", "int8"],
                     help="fused engine corpus dtype (the re-rank absorbs "
                          "the int8 rounding)")
     sp.add_argument("--centroids", default=None,

@@ -112,6 +112,23 @@ def pack_neighbors(graph, base, dtype=None):
     return packed, sq.astype(np.float32)
 
 
+def _dedup(nbrs, dist, beam_ids, *, M: int, intra_dedup: bool,
+           visited: torch.Tensor | None = None):
+    """A hop's candidates that are no use: empty slots, nodes already in the
+    pool, repeats among the M adjacency rows (the first kept) and, with a
+    ``visited`` table, nodes scored before (the table is updated in place).
+    Returns ``(invalid (B, MK) bool, dists with +inf where invalid)``."""
+    dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(dim=-1)
+    if M > 1 and intra_dedup:
+        dup |= intra_dedup_mask(nbrs)
+    if visited is not None:
+        safe = nbrs.clamp(min=0).long()
+        dup |= torch.gather(visited, 1, safe) > 0
+        visited.scatter_reduce_(1, safe, (nbrs >= 0).to(torch.uint8), "amax")
+    invalid = (nbrs < 0) | dup
+    return invalid, torch.where(invalid, _INF, dist)
+
+
 def _walk(qf: torch.Tensor, base_f32: torch.Tensor, entry_ids: torch.Tensor,
           fetch: Callable, *, n: int, ef: int, max_hops: int, metric: str,
           visited_mode: str, expand: int, intra_dedup: bool) -> SearchResult:
@@ -157,17 +174,8 @@ def _walk(qf: torch.Tensor, base_f32: torch.Tensor, entry_ids: torch.Tensor,
         nbrs, dist = fetch(f_ids, q_sq)
         nbrs = torch.where(
             live.repeat_interleave(nbrs.shape[1] // M, dim=1), nbrs, -1)
-        dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(dim=-1)
-        if M > 1 and intra_dedup:
-            # the M adjacency rows can share nodes: keep the first
-            dup |= intra_dedup_mask(nbrs)
-        if visited is not None:
-            safe = nbrs.clamp(min=0).long()
-            dup |= torch.gather(visited, 1, safe) > 0
-            visited.scatter_reduce_(1, safe, (nbrs >= 0).to(torch.uint8),
-                                    "amax")
-        invalid = (nbrs < 0) | dup
-        cand_d = torch.where(invalid, _INF, dist)
+        invalid, cand_d = _dedup(nbrs, dist, beam_ids, M=M,
+                                 intra_dedup=intra_dedup, visited=visited)
         n_dist += (~invalid).sum(dim=1, dtype=torch.int32)
         beam_ids, beam_d, expanded = merge_pool(
             beam_ids, beam_d, expanded, nbrs, cand_d, invalid, ef)

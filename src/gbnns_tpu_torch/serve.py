@@ -106,9 +106,11 @@ class SearchService:
         if engine == "fused":
             from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
 
-            self.fused = FusedScanIndex(base, base_lo, metric=metric,
-                                        scan_dtype=scan_dtype,
-                                        device=self.device)
+            # as in the JAX service: int8, else bf16
+            self.fused = FusedScanIndex(
+                base, base_lo, metric=metric,
+                scan_dtype="int8" if scan_dtype == "int8" else "bfloat16",
+                device=self.device)
         elif engine == "graph_pallas":
             from gbnns_tpu_torch.search.entries import CentroidEntries
             from gbnns_tpu_torch.search.graph_index import GraphIndex

@@ -1,6 +1,6 @@
 """chip_smoke.py's phases rehearsed on the CPU at a small size: the corpus
 of n = 20,000 with its cached ground truth and projection, the fused service
-in bf16, int8 and f32 over submit() and HTTP, the graph build, the walker
+in bf16 and int8 over submit() and HTTP, the graph build, the walker
 checks, the graph_pallas service, and a teardown that leaves no thread.
 (The kernel phases and the launch and recall checks need the card.)"""
 
@@ -30,15 +30,17 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
         timed=2)
     out = capsys.readouterr().out
     assert "ground truth: 1024/1024 rows equal" in out
-    assert out.count("1.0000 of rows equal to a direct search") == 4
+    assert out.count("1.0000 of rows equal to a direct search") == 3
     assert "reachable from the walker's entries: 20000/20000" in out
     assert out.count("identical True") == 2
     for ef in (32, 48, 64):
         assert f"graph_pallas ef={ef}: R@1=" in out
+    assert "fused graph (20000, 32)" in out and "launches {" in out
     assert set(records) == {"binned_scan[bfloat16]", "binned_scan[int8]",
-                            "binned_scan[float32]",
+                            "binned_scan[bfloat16,packed]",
                             "merge_topc[bfloat16,c=12]",
-                            "merge_topc[int8,c=16]", "row_gather"}
+                            "merge_topc[int8,c=16]", "merge_topc[build,c=33]",
+                            "row_gather"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
     assert set(threading.enumerate()) <= before
 
@@ -87,6 +89,30 @@ def test_hop_breakdown_runs_its_stages(chip_smoke, monkeypatch, capsys):
     assert out["hops"] > 0 and np.isfinite(out["walk_ms"])
     assert capsys.readouterr().out.count("hop stage") == 6
 
+
+def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
+    """The card-only check of K1 packed and K2 at c = K + 1 on a node chunk
+    of the fused build's operands, on the CPU with the timer replaced by a
+    call that only runs each kernel and no device to synchronize."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    base_lo = np.random.default_rng(5).normal(size=(2048, 32)) \
+        .astype(np.float32)
+    records = {"merge_topc[build,c=33]": {"launches": 7}}
+    chip_smoke.build_chunk_check(base_lo, torch.device("cpu"), records)
+    out = capsys.readouterr().out
+    assert "K1 binned_scan[bfloat16,packed] vs plain" in out
+    assert "K2 merge_topc[build,c=33] equals plain: True" in out
+    scan = records["binned_scan[bfloat16,packed]"]
+    merge = records["merge_topc[build,c=33]"]
+    assert scan["max_abs_err"] == 0.0 and scan["bound_ms"] > 0
+    assert scan["library_ms"] == 1.0 and merge["library_ms"] == 1.0
+    assert merge["launches"] == 7   # the build run's count is kept
+    assert set(scan) == set(merge)
 
 
 def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):

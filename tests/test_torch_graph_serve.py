@@ -6,7 +6,10 @@ counterpart. Small corpus: n = 2,048, d = 24, K = 12.
 Tolerances: sizing is equal byte for byte; ``GraphIndex.from_jax(...)
 .search`` is within 0.005 of JAX's ``GraphIndex.search`` in recall@10; a
 served answer equals the direct search of the same queries exactly (a walk
-is per query, so the batch it rides in cannot change it)."""
+is per query, so the batch it rides in cannot change it); against the JAX
+package's ``SearchService`` on the same corpus, graph and staged centroids,
+engine "graph" answers with equal ids on at least 98 % of rows and engine
+"graph_pallas" within 0.005 in recall@10."""
 
 import http.client
 import json
@@ -18,6 +21,7 @@ import torch
 
 from gbnns_tpu.search import sizing as jax_sizing
 from gbnns_tpu.search.graph_index import GraphIndex as JaxGraphIndex
+from gbnns_tpu.serve import SearchService as JaxSearchService
 from gbnns_tpu_torch import cli
 from gbnns_tpu_torch.build.knn_graph import (build_knn_graph, load_graph,
                                              save_graph)
@@ -161,6 +165,36 @@ def test_graph_engines_over_http(corpus, tmp_path, engine):
         server.join(30)
     assert not server.is_alive()
     assert not svc._dispatcher.is_alive()
+
+
+@pytest.mark.parametrize("engine", ["graph", "graph_pallas"])
+def test_graph_engines_match_the_jax_service(corpus, tmp_path, engine):
+    """Both packages' services on one corpus, graph and centroids file (the
+    port's, which the JAX package loads): the engine's own wiring (strided
+    entries min(32, ef), the centroid count, num_entries = min(16, ef))
+    must be the same."""
+    base, query, graph, gt = corpus
+    cents = str(tmp_path / "cents.npz")
+    if engine == "graph_pallas":
+        CentroidEntries.build(base, ncent=16, iters=2, device="cpu") \
+            .save(cents)
+    kw = dict(graph=graph, engine=engine, ef=32, max_wait_ms=1.0,
+              centroids_path=cents if engine == "graph_pallas" else None)
+    mine_svc = SearchService(base, device="cpu", **kw)
+    ref_svc = JaxSearchService(base, **kw)
+    try:
+        mine, _ = mine_svc.submit(query, None, 10)
+        ref, _ = ref_svc.submit(query, None, 10)
+    finally:
+        mine_svc.stop()
+        ref_svc.stop()
+    ref = np.asarray(ref)
+    if engine == "graph":
+        assert (mine == ref).all(axis=1).mean() >= 0.98
+    else:
+        assert abs(recall_at_k(mine, gt, 10) - recall_at_k(ref, gt, 10)) \
+            <= 0.005
+    assert recall_at_k(mine, gt, 10) > 0.85
 
 
 def test_graph_engines_need_a_graph(corpus):

@@ -217,6 +217,30 @@ def test_h2d_bfloat16_and_projection(fixture_data):
         svc.stop()
 
 
+@pytest.mark.parametrize("scan_dtype,want", [("int8", "int8"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+def test_service_scan_dtype_as_in_jax(fixture_data, scan_dtype, want):
+    """The service scans int8 or bf16, as the JAX service does: any other
+    scan dtype serves the bf16 scan (an f32 scan is FusedScanIndex's, not
+    the service's); the CLI offers those two."""
+    import torch
+
+    base, query = fixture_data
+    svc = SearchService(base, engine="fused", c=16, scan_dtype=scan_dtype,
+                        device="cpu")
+    try:
+        assert svc.fused.x_lo.dtype == getattr(torch, want)
+        ids, _ = svc.submit(query[:8], None, 10)
+        ref, _ = FusedScanIndex(base, scan_dtype=want, device="cpu").search(
+            query[:8], k=10, c=16)
+        np.testing.assert_array_equal(ids, ref.numpy())
+    finally:
+        svc.stop()
+    with pytest.raises(SystemExit):
+        _parse(["serve", "--engine", "fused", "--scan-dtype", "float32"])
+
+
 def test_cli_builds_the_service(tmp_path, fixture_data):
     base, _ = fixture_data
     write_fvecs(str(tmp_path / "base.fvecs"), base)
