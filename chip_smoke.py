@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
-scan and the graph walker.
+scan, the cluster-gated scan and the graph walker.
 
     python3 chip_smoke.py
 
@@ -14,19 +14,31 @@ each printing its wall time:
    queries from seed 0, the trained 128→32 projection and the cached exact
    ground truth under results/; the port's exact kNN must reproduce that
    ground truth on the first 1,024 queries;
-3. each scan kernel (K1 binned_scan in bf16, int8 and f32, and at a reduced
-   width of 160; K2 merge_topc) against its plain PyTorch version on the
-   serving shapes, with its time, the plain version's, one PyTorch library
-   call's and the least time the card could take (bound); the f32 kind, on
-   no engine of the service, then answers all queries through
-   FusedScanIndex.search, with its launch count and R@10;
+3. each scan kernel (K1 binned_scan in bf16, int8, f32 and fp16, and at a
+   reduced width of 160; K2 merge_topc) against its plain PyTorch version
+   on the serving shapes, with its time, the plain version's, one PyTorch
+   library call's and the least time the card could take (bound); the f32
+   and fp16 kinds, on no engine of the service, then answer all queries
+   through FusedScanIndex.search, with their launch counts and R@10;
 4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
    (c = 16): requests through submit() and HTTP /search, /search_raw on an
    ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
    QPS (median of ten requests), the recall run with the launch counts set
    to 0 before and read after; R@10 must lie within 0.005 of the JAX
    reference's rows on these inputs;
-5. graph build on the projected corpus: build_knn_graph(backend="fused",
+5. the gated scan: GatedScanIndex at its defaults (fine 32, m 16, sub
+   1024, chunk 16384, tq 512, seed 0) with its build seconds (k-means,
+   assignment, packing, upload) and stats; T4 gated_topm against its plain
+   version on all queries planned at probes 16 (values within SCAN_RTOL
+   plus one key quantum, ids equal except at counted near-ties), with its
+   time, the plain version's, the bound from the run's kept cells and the
+   full bf16 matmul as a yardstick; then probes 4, 8, 16, 32 at c = 32,
+   each search of all queries with the launch counts set to 0 before and
+   read after (one T4 launch a search), R@1, R@10, the kept-cell fraction
+   and QPS (median of ten synchronized searches); R@10 must not fall as
+   probes grows (within tests/test_gated.py's slack) and reach 0.95 at
+   probes 32;
+6. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
    read after; K1 in its packed form and K2 at c = K + 1 against their
@@ -35,14 +47,14 @@ each printing its wall time:
    exact build's graph on 1,024 sampled nodes at least the JAX package's
    0.7874 less 0.02; centroid entries (n / 256 centroids) and the bf16 hop
    payload;
-6. K3 row_gather against its plain version on 65,536 rows of that payload;
-7. walker vs plain: 1,024 queries walked with K3 and with the plain
+7. K3 row_gather against its plain version on 65,536 rows of that payload;
+8. walker vs plain: 1,024 queries walked with K3 and with the plain
    gather, identical; the f32-payload walk identical to the plain walker's;
-8. serving: SearchService(engine="graph_pallas") over the 16,384 queries
+9. serving: SearchService(engine="graph_pallas") over the 16,384 queries
    at ef = 32, 48, 64 (submit() and HTTP), with R@1, R@10, K3 launches per
    request (one per hop) and QPS; R@10 at ef = 64 at least 0.95 and not
    falling as ef grows;
-9. teardown: services stopped, HTTP servers shut down, threads joined.
+10. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -83,11 +95,21 @@ GRAPH_EFS = (32, 48, 64)
 BUILD_CHUNK = 8192    # the fused build's node chunk (build_knn_graph's)
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 # dense tensor cores (bf16, int8); fp32 on the CUDA cores
-PEAK_OPS_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
+              "float32": 67e12}
+# the gated scan's sweep (at c = 32) and its recall target at probes 32,
+# the repo's graph target (JAX's TPU run with a PCA projection read 0.9902
+# at probes 32, results/gated_1m.json: a comparison, not a target)
+GATED_PROBES = (4, 8, 16, 32)
+GATED_C = 32
+GATED_R10_MIN = 0.95
 SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
+GATED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gated_topm.cu"
 GATHER_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gather.cu"
+KERNEL_SOURCES = ("scan_topk", "gated_topm", "gather")
 REPLACES = {"binned_scan": "src/gbnns_tpu/kernels/scan_topk_pallas.py:44",
             "merge_topc": "src/gbnns_tpu/kernels/scan_topk_pallas.py:559",
+            "gated_topm": "src/gbnns_tpu/kernels/scan_topk_pallas.py:397",
             "row_gather": "src/gbnns_tpu/kernels/gather_pallas.py:40"}
 
 
@@ -246,9 +268,9 @@ def _index_args(idx, qlo):
 def kernel_checks(base, query, base_lo, gt, trained, device, records,
                   targets: bool):
     """Each scan kernel against its plain version on the serving shapes.
-    The f32 kind serves no engine of SearchService (which scans int8 or
-    bf16, as the JAX service does): its launches and recall come from
-    FusedScanIndex(scan_dtype="float32").search of all the queries."""
+    The f32 and fp16 kinds serve no engine of SearchService (which scans
+    int8 or bf16, as the JAX service does): their launches and recall come
+    from FusedScanIndex(scan_dtype=...).search of all the queries."""
     import numpy as np
     import torch
 
@@ -258,11 +280,11 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
 
     qf = torch.from_numpy(query).to(device)
     qlo = projector(trained)(qf)
-    for dtype in ("bfloat16", "int8", "float32"):
+    for dtype in ("bfloat16", "int8", "float32", "float16"):
         idx = st.FusedScanIndex(base, base_lo, scan_dtype=dtype, device=device)
         args, kw = _index_args(idx, qlo)
         got, rec = _scan_check(st, args, kw, dtype)
-        if dtype == "bfloat16":
+        if dtype in ("bfloat16", "float16"):
             # yardstick: the bare score product, (n_pad, B) bf16 in memory
             rec["library_ms"] = time_ms(
                 lambda: torch.matmul(idx.x_lo, args[0].T), 3)
@@ -271,19 +293,20 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
         # f32 scores 66 GB. No single library call fits: library_ms null.
         say(f"K1 [{dtype}] library {rec['library_ms']} ms")
         records[rec["name"]] = rec
-        if dtype == "float32":
+        if dtype in ("float32", "float16"):
             del got, args
             c = REFERENCE["bfloat16"]["c"]
             st.reset_launches()
             ids = idx.search(qf, qlo, k=10, c=c)[0].cpu().numpy()
             rec["launches"] = st.launches["binned_scan"]
             r10 = recall_at_k(ids, gt, 10)
-            say(f"FusedScanIndex(float32).search, c={c}: R@10={r10:.4f}, "
+            say(f"FusedScanIndex({dtype}).search, c={c}: R@10={r10:.4f}, "
                 f"launches binned_scan {rec['launches']}")
-            check(rec["launches"] > 0, "the f32 search launched no K1")
+            check(rec["launches"] > 0, f"the {dtype} search launched no K1")
             if targets:
                 check(r10 >= REFERENCE["bfloat16"]["r10"] - R10_TOL,
-                      f"the f32 scan's R@10 {r10:.4f} falls below bf16's")
+                      f"the {dtype} scan's R@10 {r10:.4f} falls below "
+                      f"bf16's")
             del idx
             torch.cuda.empty_cache()
             continue
@@ -499,6 +522,147 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
               f"R@10 {out['r10']:.4f} is not within {R10_TOL} of the "
               f"reference {ref}")
     return out
+
+
+def _gated_operands(idx, ql, probes: int):
+    """T4's operands and options as ``idx.search`` gives them at
+    ``probes``, and the least time the card could take for them: the
+    operations of the kept cells, or each input read once (the chunks some
+    tile keeps, their addvec, the queries and the mask) and each output
+    written once. Returns (args, kw, bound_ms, bound_by, kept cells, cells,
+    needed chunks)."""
+    order, tile_mask, tq = idx.plan(ql, probes=probes)
+    q_scan = idx.scan_queries(ql, order)
+    args = (q_scan, idx.x_lo, idx.addvec, tile_mask)
+    kw = dict(fine=idx.fine, m=idx.m, sub=idx.sub, chunk=idx.chunk, tq=tq)
+    B, d = q_scan.shape
+    el = idx.x_lo.element_size()
+    keep = tile_mask.view(idx.n_chunks, B // tq) > 0
+    cells = int(keep.sum())
+    chunks = int(keep.any(dim=1).sum())
+    n_bytes = (chunks * idx.chunk * (d * el + 4) + B * d * el
+               + tile_mask.numel() * 4 + B * idx.m * idx.n_chunks * 8)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * cells * tq * idx.chunk * d,
+                          str(idx.x_lo.dtype).removeprefix("torch."))
+    return args, kw, b_ms, b_by, cells, keep.numel(), chunks
+
+
+def gated_check(idx, ql, records) -> None:
+    """T4 against its plain version on all queries planned at probes 16,
+    with its time, the plain version's, its bound from this run's kept
+    cells and the full bf16 matmul at this shape as a yardstick."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    args, kw, b_ms, b_by, cells, n_cells, chunks = _gated_operands(idx, ql,
+                                                                   16)
+    got = st.gated_topm_scan(*args, **kw)
+    ref = st.gated_topm_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rep = st.gated_agreement(got, ref, *args[:3], fine=idx.fine, sub=idx.sub,
+                             chunk=idx.chunk, rtol=SCAN_RTOL)
+    say(f"T4 gated_topm vs plain (probes 16): {rep}")
+    check(rep["ok"], "T4 disagrees with its plain version")
+    del got, ref
+    ms = time_ms(lambda: st.gated_topm_scan(*args, **kw))
+    plain_ms = time_ms(lambda: st.gated_topm_scan_plain(*args, **kw), 2)
+    q_scan = args[0]
+    yard_ms = time_ms(lambda: torch.matmul(idx.x_lo, q_scan.T), 3)
+    torch.cuda.empty_cache()
+    say(f"T4 [B={q_scan.shape[0]} n_pad={idx.x_lo.shape[0]} "
+        f"d={q_scan.shape[1]} tq={kw['tq']}, kept {cells}/{n_cells} cells, "
+        f"{chunks}/{idx.n_chunks} chunks]: {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); library: none "
+        f"(no PyTorch call computes a gated top-m), yardstick: the full "
+        f"bf16 matmul at this shape {yard_ms:.3f} ms")
+    records["gated_topm"] = {
+        **dict(name="gated_topm", route="cuda", source=GATED_SOURCE,
+               replaces=REPLACES["gated_topm"], launches=None,
+               max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               yardstick_ms=yard_ms),
+        **records.get("gated_topm", {})}
+
+
+def gated_scan(base, query, base_lo, gt, trained, device, records,
+               targets: bool, timed: int) -> list[dict]:
+    """GatedScanIndex at its defaults: its build, T4 against its plain
+    version, then the probes sweep at c = 32."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    idx = GatedScanIndex(base, base_lo, device=device)
+    secs = ", ".join(f"{k} {v:.2f} s" for k, v in idx.build_seconds.items())
+    say(f"GatedScanIndex: {time.perf_counter() - t0:.2f} s ({secs}); "
+        f"stats {idx.stats}")
+    qf = torch.from_numpy(query).to(device)
+    ql = projector(trained)(qf)
+    if device.type == "cuda":
+        gated_check(idx, ql, records)
+    outs = []
+    for probes in GATED_PROBES:
+        st.reset_launches()
+        ids, _, kept = idx.search(qf, ql, k=10, c=GATED_C, probes=probes,
+                                  return_kept_frac=True)
+        ids = ids.cpu().numpy()
+        launches = st.launches["gated_topm"]
+        r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+        check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+              and ids.max() < base.shape[0], "gated result ids out of range")
+        batch_s = []
+        for _ in range(timed):
+            sync()
+            t0 = time.perf_counter()
+            idx.search(qf, ql, k=10, c=GATED_C, probes=probes)
+            sync()
+            batch_s.append(time.perf_counter() - t0)
+        med = float(np.median(batch_s))
+        out = {"engine": f"gated probes={probes} c={GATED_C}", "r1": r1,
+               "r10": r10, "kept_frac": kept, "qps": query.shape[0] / med,
+               "search_ms": [t * 1e3 for t in batch_s],
+               "launches": {"gated_topm": launches}}
+        say(f"gated probes={probes} c={GATED_C}: R@1={r1:.4f} "
+            f"R@10={r10:.4f} kept {kept:.4f} of cells, {med * 1e3:.2f} ms "
+            f"a search of {query.shape[0]} projected queries (median of "
+            f"{timed}), QPS={out['qps']:,.0f}, T4 launches {launches}")
+        if device.type == "cuda":
+            check(launches == 1, f"gated probes={probes} launched T4 "
+                  f"{launches} times, not once")
+            args, kw, b_ms, _, cells, n_cells, _ = _gated_operands(
+                idx, ql, probes)
+            out["t4_ms"] = time_ms(lambda: st.gated_topm_scan(*args, **kw))
+            out["t4_bound_ms"] = b_ms
+            say(f"  T4 at probes={probes} ({cells}/{n_cells} cells): "
+                f"{out['t4_ms']:.3f} ms, bound {b_ms:.4f} ms")
+            del args
+        if probes == 16:
+            records.setdefault("gated_topm", {})["launches"] = launches
+        say(json.dumps(out))
+        outs.append(out)
+    r = {o["engine"].split()[1]: o["r10"] for o in outs}
+    say(f"gated R@10 by probes {r} (JAX package, TPU v5e with a PCA "
+        f"projection, results/gated_1m.json: 0.9737 at probes 16)")
+    if targets:
+        r4, r16, r32 = r["probes=4"], r["probes=16"], r["probes=32"]
+        check(r4 <= r16 + 0.02 <= r32 + 0.04,
+              f"gated R@10 falls as probes grows: {r}")
+        check(r32 >= GATED_R10_MIN,
+              f"gated R@10 {r32:.4f} < {GATED_R10_MIN} at probes 32")
+    del idx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return outs
 
 
 def build_chunk_check(base_lo, device, records):
@@ -777,10 +941,10 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
     with Phase("build kernels"):
         if device.type == "cuda":
             t0 = time.perf_counter()
-            _build.build(["scan_topk", "gather"])
-            say(f"nvcc build: {time.perf_counter() - t0:.2f} s ("
-                f"{_build.library_path('scan_topk').parent.name}, "
-                f"{_build.library_path('gather').parent.name})")
+            _build.build(list(KERNEL_SOURCES))
+            say(f"nvcc build: {time.perf_counter() - t0:.2f} s (" + ", ".join(
+                _build.library_path(n).parent.name for n in KERNEL_SOURCES)
+                + ")")
     with Phase("data"):
         base, query, base_lo, gt, trained = load_data(device, n, nq, proj_file)
     if device.type == "cuda":
@@ -791,6 +955,9 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
         with Phase(f"serve fused {dtype}"):
             serve_fused(dtype, base, query, base_lo, gt, trained, device,
                         records, targets, timed)
+    with Phase("gated scan"):
+        gated_scan(base, query, base_lo, gt, trained, device, records,
+                   targets, timed)
     with Phase("graph build"):
         graph, entries, payload = graph_build(base_lo, device, records,
                                               targets)

@@ -6,15 +6,17 @@ The JAX package stays beside it as the reference; this package imports none
 of it, nor JAX. Module names follow the JAX package's, so each module's
 counterpart is found by name (``search/walker.py`` is ``walker_jax.py``,
 ``search/walker_payload.py`` is ``walker_pallas.py``). Ported so far
-(ROADMAP.md): the fused-scan serving path and the graph serving path.
+(ROADMAP.md): the fused-scan serving path, the graph serving path and the
+cluster-gated scan.
 
   io/        fvecs/ivecs codecs, dataset registry, synthetic data
-  kernels/   distances, exact kNN, the binned scan, top-c merge and row
-             gather (hand-written CUDA kernels under kernels/csrc/)
+  kernels/   distances, exact kNN, the binned scan, top-c merge, gated
+             top-m scan and row gather (hand-written CUDA kernels under
+             kernels/csrc/)
   build/     kNN-graph build and its host passes, k-means
   dimred/    projection models and the checkpoint loader
-  search/    re-rank, flat index, centroid entries, beam walkers, graph
-             index, device-memory sizing
+  search/    re-rank, flat index, cluster-gated scan index, centroid
+             entries, beam walkers, graph index, device-memory sizing
   eval/      recall, exact ground truth
   serve.py   HTTP search service; cli.py its command line
 
@@ -29,6 +31,7 @@ _EXPORTS = {
     "FusedScanIndex": "gbnns_tpu_torch.kernels.scan_topk",
     "FlatIndex": "gbnns_tpu_torch.search.flat",
     "GraphIndex": "gbnns_tpu_torch.search.graph_index",
+    "GatedScanIndex": "gbnns_tpu_torch.search.gated",
     "CentroidEntries": "gbnns_tpu_torch.search.entries",
     "build_knn_graph": "gbnns_tpu_torch.build.knn_graph",
     "beam_search": "gbnns_tpu_torch.search.walker",

@@ -52,20 +52,22 @@ def kmeans_fit(x, ncent: int, *, iters: int = 10, seed: int = 0,
     """Fit ``ncent`` centroids to ``x (n, d)``: (ncent, d) float32.
 
     ``sample`` caps the rows used for fitting (a random subset). The subset
-    and the initial centroids are drawn by a ``torch.Generator`` seeded with
-    ``seed``; ``init`` (ncent, d) gives the initial centroids instead, so a
-    run can start where another package's did.
+    and the initial centroids are drawn as the JAX package draws them, from
+    one ``np.random.default_rng(seed)``: the subset first (only when
+    ``sample < n``), then ``ncent`` distinct rows of it, so the same seed
+    starts from the same centroids in both packages. ``init`` (ncent, d)
+    gives the initial centroids instead.
     """
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
     n, d = x.shape
     if ncent > n:
         raise ValueError(f"ncent={ncent} > n={n}")
-    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
     if sample is not None and sample < n:
-        x = x[torch.randperm(n, generator=gen)[:sample].numpy()]
+        x = x[rng.choice(n, size=sample, replace=False)]
     if init is None:
-        init = x[torch.randperm(x.shape[0], generator=gen)[:ncent].numpy()]
+        init = x[rng.choice(x.shape[0], size=ncent, replace=False)]
     init = np.asarray(init, np.float32)
     if init.shape != (ncent, d):
         raise ValueError(f"init has shape {init.shape}, not {(ncent, d)}")

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch or
-CUTLASS header, so one ``nvcc`` call builds it in seconds (a source that
+CUTLASS header (only the shared ``csrc/common.cuh``), so one ``nvcc`` call builds it in seconds (a source that
 includes PyTorch's headers takes minutes). The shared library goes to
 ``<repo>/.kernel_build/<name>-<hash>/``, keyed by a hash of the source and
 the flags, so a second run reuses it. Nothing is built at import time: the
@@ -40,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` is built: keyed by its source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """Where ``csrc/<name>.cu`` is built: keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 

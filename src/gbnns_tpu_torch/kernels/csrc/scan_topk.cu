@@ -14,7 +14,7 @@
 //   For every corpus bin of `bin_size` rows and every query it writes the
 //   bin's min reduced-dimension score and the row that attains it (ties to
 //   the lower row), bin-major: vals/ids (n_bins, B). Scores are
-//     bf16, f32:  addvec[x] + dot(x, q)       x stored prescaled (-2x or -x)
+//     bf16, fp16, f32: addvec[x] + dot(x, q)  x stored prescaled (-2x or -x)
 //     int8:       addvec[x] + float(dot_i32(x, q)) * alpha[q]
 //   PACKED reproduces the Pallas packed mode: the score's IEEE bits are
 //   flipped into signed-int order, the low log2(bin_size) bits replaced by
@@ -33,7 +33,9 @@
 //   (mma.sync / wgmma) and TMA are left for a later change.
 //   f32 inputs take the same kernel with 4-byte rows and fp32 FMAs (no TF32,
 //   which would change the result); its bound is 2*B*n*d at the 67 TFLOP/s
-//   fp32 rate of the CUDA cores.
+//   fp32 rate of the CUDA cores. fp16 inputs take the bf16 path: widened to
+//   f32 exactly as they are staged (prescaling by -2 is exact in fp16 too),
+//   fp32 FMAs, the same bound as bf16 (989 TFLOP/s fp16 tensor cores).
 //   Widths: d in {16, 32, 64, 128} holds 128 / d queries per thread in
 //   registers (binned_scan_kernel). Any wider d, a multiple of 16, takes
 //   binned_scan_wide_kernel: one query per thread, 32 corpus rows per step
@@ -58,6 +60,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kScanThreads = 128;
@@ -65,31 +69,15 @@ constexpr int kTileBytes = 16384;  // corpus rows staged per step
 constexpr int kWideRows = 32;      // wide scan: corpus rows per step
 constexpr int kWideCols = 64;      // wide scan: columns per staged slab
 
-// Element type of the scan's query and corpus (the `kind` of the C API).
-enum ScanKind { kBf16 = 0, kInt8 = 1, kF32 = 2 };
 constexpr int kMergeQueries = 8;   // queries (warps) per merge block
-constexpr int kIntMax = 0x7FFFFFFF;
 
-// IEEE-f32 bits -> signed-int total order (an involution).
-__device__ __forceinline__ int flip_bits(int b) {
-  return b < 0 ? (b ^ 0x7FFFFFFF) : b;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
-// One 16-byte group of eight bf16 values -> eight floats (exact).
-__device__ __forceinline__ void bf16x8_to_f32(uint4 v, float* f) {
-  f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x);
-  f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
-  f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
-  f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
-}
+using gbnns::flip_bits;
+using gbnns::half8_to_f32;
+using gbnns::kBf16;
+using gbnns::kF16;
+using gbnns::kF32;
+using gbnns::kInt8;
+using gbnns::kIntMax;
 
 // D in {16, 32, 64, 128}; QPT queries per thread keeps D * QPT = 128
 // registers of query data.
@@ -143,13 +131,13 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
           qw[j][4 * k] = v.x; qw[j][4 * k + 1] = v.y;
           qw[j][4 * k + 2] = v.z; qw[j][4 * k + 3] = v.w;
         }
-      } else {
+      } else {  // bf16, fp16
         const uint4* src = reinterpret_cast<const uint4*>(
             static_cast<const uint16_t*>(q_ptr) + (long long)qi * D);
 #pragma unroll
         for (int k = 0; k < D / 8; ++k) {
           float f[8];
-          bf16x8_to_f32(src[k], f);
+          half8_to_f32<KIND>(src[k], f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) qw[j][8 * k + e] = __float_as_uint(f[e]);
         }
@@ -181,16 +169,15 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
           static_cast<const float*>(x_ptr) + (row0 + t0) * D);
       uint4* dst = reinterpret_cast<uint4*>(xs);
       for (int i = tid; i < cnt * (D / 4); i += kScanThreads) dst[i] = src[i];
-    } else {
+    } else {  // bf16, fp16: widened to f32 as they are staged
       const uint4* src = reinterpret_cast<const uint4*>(
           static_cast<const uint16_t*>(x_ptr) + (row0 + t0) * D);
       float4* dst = reinterpret_cast<float4*>(xs);
       for (int i = tid; i < cnt * (D / 8); i += kScanThreads) {
-        uint4 v = src[i];
-        dst[2 * i] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y),
-                                 bf16_hi(v.y));
-        dst[2 * i + 1] = make_float4(bf16_lo(v.z), bf16_hi(v.z),
-                                     bf16_lo(v.w), bf16_hi(v.w));
+        float f[8];
+        half8_to_f32<KIND>(src[i], f);
+        dst[2 * i] = make_float4(f[0], f[1], f[2], f[3]);
+        dst[2 * i + 1] = make_float4(f[4], f[5], f[6], f[7]);
       }
     }
     for (int i = tid; i < cnt; i += kScanThreads) adds[i] = addvec[row0 + t0 + i];
@@ -334,8 +321,8 @@ binned_scan_wide_kernel(const void* __restrict__ q_ptr,
           } else {
             const uint4* src = reinterpret_cast<const uint4*>(
                 static_cast<const uint16_t*>(x_ptr) + e);
-            bf16x8_to_f32(src[0], f);
-            bf16x8_to_f32(src[1], f + 8);
+            half8_to_f32<KIND>(src[0], f);
+            half8_to_f32<KIND>(src[1], f + 8);
           }
           float4* dst = reinterpret_cast<float4*>(xs) + r * (kRowWords / 4)
                         + 4 * g;
@@ -383,8 +370,8 @@ binned_scan_wide_kernel(const void* __restrict__ q_ptr,
           } else {
             const uint4* src = reinterpret_cast<const uint4*>(
                 static_cast<const uint16_t*>(q_ptr) + qe);
-            bf16x8_to_f32(src[0], qv);
-            bf16x8_to_f32(src[1], qv + 8);
+            half8_to_f32<KIND>(src[0], qv);
+            half8_to_f32<KIND>(src[1], qv + 8);
           }
 #pragma unroll
           for (int r = 0; r < kWideRows; ++r) {
@@ -459,6 +446,9 @@ cudaError_t launch_scan(const void* q, const void* x, const float* addvec,
     case kF32:
       if (packed) GBNNS_SCAN(kF32, true); else GBNNS_SCAN(kF32, false);
       break;
+    case kF16:
+      if (packed) GBNNS_SCAN(kF16, true); else GBNNS_SCAN(kF16, false);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -525,8 +515,9 @@ const char* gbnns_error_string(int err) {
 }
 
 // q (B, d) and x (n_pad, d) of one kind: 0 bf16 (x prescaled), 1 int8,
-// 2 f32 (x prescaled); addvec (n_pad,) f32; alpha (B,) f32 for int8, else
-// ignored; out_val f32 / out_idx int32, both (n_pad / bin_size, B).
+// 2 f32 (x prescaled), 3 fp16 (x prescaled); addvec (n_pad,) f32; alpha
+// (B,) f32 for int8, else ignored; out_val f32 / out_idx int32, both
+// (n_pad / bin_size, B).
 // d in {16, 32, 64, 128} or any larger multiple of 16; n_pad % bin_size ==
 // 0; PACKED needs a power-of-two bin_size. Pointers 16-byte aligned.
 int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
@@ -534,7 +525,7 @@ int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
                       int B, int n_pad, int d, int bin_size, int kind,
                       int packed, void* stream) {
   if (B <= 0 || bin_size <= 0 || n_pad <= 0 || n_pad % bin_size != 0 ||
-      kind < kBf16 || kind > kF32)
+      kind < kBf16 || kind > kF16)
     return cudaErrorInvalidValue;
   int idx_bits = 0;
   while ((1 << idx_bits) < bin_size) ++idx_bits;

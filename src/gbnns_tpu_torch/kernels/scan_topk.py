@@ -9,17 +9,22 @@ bin winners for the exact full-dimension re-rank.
 Scores (smaller is closer; the per-query ``‖q‖²`` term cannot change a
 query's ranking, so it is left out):
 
-* bf16 and f32: the corpus is stored prescaled as ``-2x`` (l2) or ``-x``
+* bf16, fp16 and f32: the corpus is stored prescaled as ``-2x`` (l2) or ``-x``
   (ip, angular), an exact exponent shift, and ``score = addvec[x] + x·q``
   with ``addvec`` = ``‖x‖²`` (l2) or 0, and +inf on padding rows;
 * int8: per-tensor corpus scale ``sx``, per-query scale ``sq``, exact int32
   dots and ``score = addvec[x] + dot * alpha[q]``, ``alpha = -2/(sx*sq)``
   (l2) or ``-1/(sx*sq)``; ``addvec`` is the norm of the dequantized corpus.
 
-Each of ``binned_scan`` and ``merge_topc`` launches its CUDA kernel
-(``csrc/scan_topk.cu``, K1 and K2) for CUDA tensors and takes its plain
-PyTorch version (``binned_scan_plain``, ``merge_topc_plain``) only for CPU
-tensors. ``launches`` counts the kernel launches of each wrapper.
+The cluster-gated scan of ``search/gated.py`` (``gated_topm_scan``) scores
+only the (corpus chunk x query tile) cells its tile mask keeps, and gives
+each query the ``m`` best fine-bin winners of each kept chunk.
+
+Each of ``binned_scan``, ``merge_topc`` and ``gated_topm_scan`` launches its
+CUDA kernel (``csrc/scan_topk.cu``: K1 and K2; ``csrc/gated_topm.cu``: T4)
+for CUDA tensors and takes its plain PyTorch version (``binned_scan_plain``,
+``merge_topc_plain``, ``gated_topm_scan_plain``) only for CPU tensors.
+``launches`` counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -40,10 +45,11 @@ from gbnns_tpu_torch.search.rerank import rerank
 # add nothing to a dot product).
 SCAN_WIDTHS = (16, 32, 64, 128)
 # The scan's element type -> the ``kind`` of the C interface.
-_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2,
+          torch.float16: 3}
 _INT_MAX = 0x7FFFFFFF
 
-launches = _build.LaunchCounts("binned_scan", "merge_topc")
+launches = _build.LaunchCounts("binned_scan", "merge_topc", "gated_topm")
 reset_launches = launches.reset
 
 
@@ -81,6 +87,16 @@ def _library():
     return lib
 
 
+def _gated_library():
+    lib = _build.load("gated_topm")
+    if not getattr(lib, "_gbnns_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gbnns_gated_topm.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p]
+        lib.gbnns_gated_topm.restype = i
+        lib._gbnns_bound = True
+    return lib
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
     t = t.contiguous()
@@ -91,8 +107,8 @@ def _check_scan_args(q, x, addvec, alpha, bin_size, packed) -> bool:
     """Validate the scan's inputs; returns whether it is the int8 scan."""
     quant = x.dtype == torch.int8
     if x.dtype not in _KINDS:
-        raise TypeError(f"scan corpus must be bfloat16, int8 or float32, "
-                        f"got {x.dtype}")
+        raise TypeError(f"scan corpus must be bfloat16, float16, int8 or "
+                        f"float32, got {x.dtype}")
     if q.dtype != x.dtype:
         raise TypeError(f"queries {q.dtype} do not match corpus {x.dtype}")
     others = [q, addvec] + ([] if alpha is None else [alpha])
@@ -117,8 +133,8 @@ def binned_scan_plain(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     """Plain PyTorch version of ``binned_scan`` (same contract).
 
     The dots run as fp32 products with TF32 off: exact products of bf16
-    inputs, fp32 products of fp32 inputs, and exact integer sums for int8
-    (|dot| <= d * 127² < 2^24 for d < 1040)."""
+    and fp16 inputs, fp32 products of fp32 inputs, and exact integer sums
+    for int8 (|dot| <= d * 127² < 2^24 for d < 1040)."""
     quant = _check_scan_args(q, x, addvec, alpha, bin_size, packed)
     B = q.shape[0]
     n_bins = x.shape[0] // bin_size
@@ -155,7 +171,7 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     """Bin winners of the full scan, bin-major: ``(vals (n_bins, B) f32,
     ids (n_bins, B) int32)``, ids being corpus rows.
 
-    q (B, d) and x (n_pad, d) are both bfloat16 or both float32 (x
+    q (B, d) and x (n_pad, d) are both bfloat16, float16 or float32 (x
     prescaled), or both int8; addvec (n_pad,) f32; alpha (B,) f32 for int8
     only. d is one of ``SCAN_WIDTHS`` or a larger multiple of 16.
     ``packed`` selects on an int key with the score quantized to 2^-13
@@ -189,6 +205,158 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     _build.check(lib, err, "binned_scan")
     launches.count("binned_scan")
     return vals, ids
+
+
+# The gated kernel's element kinds, and the most winners it keeps a chunk.
+_GATED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+GATED_MAX_M = 32
+
+
+def _check_gated_args(q, x, addvec, tile_mask, *, fine: int, m: int,
+                      sub: int, chunk: int, tq: int) -> tuple[int, int]:
+    """The Pallas ``gated_topm_scan``'s checks; returns (n_chunks, b_tiles).
+    One more: chunk / fine must be a power of two, since the Pallas kernel
+    reads a fine bin back from the key's low bits with that mask."""
+    if x.dtype == torch.int8:
+        raise TypeError("the gated scan takes a bfloat16, float16 or float32 "
+                        "corpus (prescaled -2x or -x), not int8")
+    if x.dtype not in _GATED_DTYPES:
+        raise TypeError(f"the gated scan's corpus must be bfloat16, float16 "
+                        f"or float32, got {x.dtype}")
+    if any(t.device != x.device for t in (q, addvec, tile_mask)):
+        raise ValueError("gated scan inputs must all lie on one device")
+    if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"x {tuple(x.shape)}")
+    B, n_pad = q.shape[0], x.shape[0]
+    for v, name in ((fine, "fine"), (sub, "sub"), (m, "m")):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"{name} must be a power of two, got {v}")
+    if n_pad % chunk or chunk % sub or sub % fine:
+        raise ValueError(f"need n_pad % chunk == chunk % sub == sub % fine "
+                         f"== 0: n_pad {n_pad}, chunk {chunk}, sub {sub}, "
+                         f"fine {fine}")
+    nfb = chunk // fine
+    if nfb & (nfb - 1):
+        raise ValueError(f"chunk / fine must be a power of two, got {nfb}")
+    if B % tq:
+        raise ValueError(f"the gated scan needs the caller to pad B ({B}) "
+                         f"to a multiple of tq ({tq})")
+    if m > nfb:
+        raise ValueError(f"m={m} > fine bins per chunk {nfb}")
+    n_chunks, b_tiles = n_pad // chunk, B // tq
+    if tuple(tile_mask.shape) != (n_chunks * b_tiles,):
+        raise ValueError(f"tile_mask has shape {tuple(tile_mask.shape)}, not "
+                         f"({n_chunks * b_tiles},)")
+    if tuple(addvec.shape) != (n_pad,):
+        raise ValueError("addvec must have one entry per corpus row")
+    return n_chunks, b_tiles
+
+
+def gated_topm_scan_plain(q, x, addvec, tile_mask, *, metric: str = "l2",
+                          fine: int = 128, m: int = 16, sub: int = 1024,
+                          chunk: int = 16384, tq: int = 1024):
+    """Plain PyTorch version of ``gated_topm_scan`` (same contract): the
+    keys of the Pallas ``_gated_topm_kernel``, computed per kept cell.
+
+    Queries are cast to the corpus type, as the Pallas wrapper does, and
+    the dots run as fp32 products with TF32 off (exact products of bf16
+    and fp16 inputs), in score blocks of at most 2^26 entries. The keys
+    are unique within a query, so the m extraction rounds are the m
+    smallest keys in ascending order (``torch.topk``). ``metric`` is not
+    read: the corpus comes prescaled."""
+    n_chunks, b_tiles = _check_gated_args(q, x, addvec, tile_mask, fine=fine,
+                                          m=m, sub=sub, chunk=chunk, tq=tq)
+    B = q.shape[0]
+    dev = x.device
+    vals = torch.full((n_chunks * m, B), float("inf"), dtype=torch.float32,
+                      device=dev)
+    ids = torch.full((n_chunks * m, B), -1, dtype=torch.int32, device=dev)
+    qf = q.to(x.dtype).float()
+    nfb = chunk // fine
+    km = max(sub, nfb) - 1
+    sub_mask = sub - 1
+    in_block = (torch.arange(chunk, dtype=torch.int32, device=dev)
+                & sub_mask)[:, None]
+    bins = torch.arange(nfb, dtype=torch.int32, device=dev)[:, None]
+    lane = torch.arange(tq, device=dev)
+    keep = (tile_mask.view(n_chunks, b_tiles) > 0).cpu()
+    step = max(1, (1 << 26) // (chunk * tq))     # query tiles per block
+    for j in range(n_chunks):
+        kept = torch.nonzero(keep[j]).flatten().to(dev)
+        if not kept.numel():
+            continue
+        r0, r1 = j * chunk, (j + 1) * chunk
+        xj = x[r0:r1].float()
+        add = addvec[r0:r1, None].float()
+        for g in range(0, kept.numel(), step):
+            cols = (kept[g:g + step, None] * tq + lane).flatten()
+            with exact_fp32():
+                s = add + xj @ qf[cols].T                     # (chunk, nc)
+            pkey = (_flip(s.view(torch.int32)) & ~sub_mask) | in_block
+            kmin = pkey.view(nfb, fine, -1).amin(dim=1)       # (nfb, nc)
+            key = (kmin & ~km) | bins
+            top = torch.topk(key, m, dim=0, largest=False, sorted=True)[0]
+            win = top & (nfb - 1)
+            row = torch.gather(kmin, 0, win.long()) & sub_mask
+            vals[j * m:(j + 1) * m, cols] = _flip(top & ~km).view(
+                torch.float32)
+            ids[j * m:(j + 1) * m, cols] = (((win * fine) & ~sub_mask) + row
+                                            + r0)
+    return vals.T, ids.T
+
+
+def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
+                    fine: int = 128, m: int = 16, sub: int = 1024,
+                    chunk: int = 16384, tq: int = 1024):
+    """Cluster-gated per-chunk top-m candidates: ``(vals (B, m*n_chunks)
+    f32, ids (B, m*n_chunks) int32)``, column ``j*m + t`` holding chunk j's
+    t-th winner (a corpus position), ascending by the key; a skipped cell
+    gives +inf and -1.
+
+    q (B, d) with B a multiple of ``tq`` (the caller pads; the mask layout
+    must match), cast to the corpus type; x (n_pad, d) bfloat16, float16 or
+    float32, PRESCALED (-2x for l2, -x for ip), cluster-major and
+    fine-interleaved (see ``search/gated.py``); addvec (n_pad,) as in
+    ``binned_scan``; tile_mask (n_chunks * B/tq,) int32, entry
+    ``j * b_tiles + i`` gating corpus chunk j against query tile i. Values
+    come back quantized to 2^(log2 max(sub, chunk/fine) - 23) relative.
+    CPU tensors take ``gated_topm_scan_plain``; CUDA tensors launch T4
+    (d in ``SCAN_WIDTHS``, m <= ``GATED_MAX_M``)."""
+    if x.device.type == "cpu":
+        return gated_topm_scan_plain(q, x, addvec, tile_mask, metric=metric,
+                                     fine=fine, m=m, sub=sub, chunk=chunk,
+                                     tq=tq)
+    n_chunks, b_tiles = _check_gated_args(q, x, addvec, tile_mask, fine=fine,
+                                          m=m, sub=sub, chunk=chunk, tq=tq)
+    if x.device.type != "cuda":
+        raise ValueError(f"gated_topm_scan runs on cuda or cpu, not "
+                         f"{x.device}")
+    B, d = q.shape
+    if d not in SCAN_WIDTHS:
+        raise ValueError(f"the gated kernel takes d in {SCAN_WIDTHS}, got {d}")
+    if m > GATED_MAX_M:
+        raise ValueError(f"the gated kernel keeps at most {GATED_MAX_M} "
+                         f"winners a chunk, got m={m}")
+    if n_chunks > 65535:
+        raise ValueError(f"the gated kernel takes at most 65,535 chunks, "
+                         f"got {n_chunks}")
+    q, x = _aligned(q.to(x.dtype)), _aligned(x)
+    addvec = _aligned(addvec.float())
+    tile_mask = _aligned(tile_mask.to(torch.int32))
+    vals = torch.empty((n_chunks * m, B), dtype=torch.float32,
+                       device=x.device)
+    ids = torch.empty((n_chunks * m, B), dtype=torch.int32, device=x.device)
+    lib = _gated_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gbnns_gated_topm(
+            q.data_ptr(), x.data_ptr(), addvec.data_ptr(),
+            tile_mask.data_ptr(), vals.data_ptr(), ids.data_ptr(), B,
+            x.shape[0], d, chunk, tq, fine, sub, m, _KINDS[x.dtype], stream)
+    _build.check(lib, err, "gated_topm")
+    launches.count("gated_topm")
+    return vals.T, ids.T
 
 
 def _merge_plan(c: int, rb: int, rows: int) -> tuple[int, int, bool]:
@@ -314,11 +482,11 @@ class FusedScanIndex:
         if mode != "binned":
             raise ValueError(f"unknown mode {mode!r}")
         dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8,
-                  "float32": torch.float32}
+                  "float32": torch.float32, "float16": torch.float16}
         self.scan_dtype = dtypes.get(scan_dtype, scan_dtype)
         if self.scan_dtype not in dtypes.values():
-            raise ValueError(f"scan_dtype must be bfloat16, int8 or float32, "
-                             f"got {scan_dtype!r}")
+            raise ValueError(f"scan_dtype must be bfloat16, float16, int8 or "
+                             f"float32, got {scan_dtype!r}")
         self.quant = self.scan_dtype == torch.int8
         if rerank_dtype in ("float32", torch.float32):
             rerank_dtype = torch.float32
@@ -364,7 +532,7 @@ class FusedScanIndex:
                 add[:n] = (xq * xq).sum(-1)
             self.x_lo = torch.from_numpy(xi.astype(np.int8)).to(self.device)
         else:
-            # prescaled storage: -2x / -x is exact in bf16 and f32
+            # prescaled storage: -2x / -x is exact in bf16, fp16 and f32
             self.x_lo = (torch.from_numpy(self.dot_scale * lo_pad)
                          .to(self.scan_dtype).to(self.device))
         self.d_lo = d_lo
@@ -377,7 +545,7 @@ class FusedScanIndex:
 
     def scan_queries(self, ql: torch.Tensor):
         """Queries in the scan's type and width, and the int8 dequant
-        factor per query (None for bf16 and f32)."""
+        factor per query (None for the float kinds)."""
         width = self.x_lo.shape[1]
         if ql.shape[1] != self.d_lo:
             raise ValueError(f"queries have {ql.shape[1]} reduced dims, the "
@@ -461,3 +629,41 @@ def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,
     return {"max_abs_err": max_err, "bad_values": bad_vals,
             "id_mismatches": int(miss.shape[0]), "near_ties": near_ties,
             "ok": bad_vals == 0 and id_bad == 0}
+
+
+def gated_agreement(got, ref, q, x, addvec, *, fine: int, sub: int,
+                    chunk: int, rtol: float = 1e-5) -> dict:
+    """Hold a gated scan's winners ``got = (vals, ids)`` (B, m*n_chunks)
+    against the plain version's ``ref`` on the same inputs.
+
+    Skipped cells (+inf, -1) must match exactly. Values must agree within
+    ``rtol`` of the largest finite |ref| plus one key quantum,
+    2^(log2 max(sub, chunk/fine) - 23) of it. Ids must be equal, except at
+    a near-tie: the plain score of the kernel's row lies within that
+    tolerance of the reference value. Returns the counts and the largest
+    error; ``ok`` says whether every winner passed."""
+    gv, gi = got[0].float(), got[1].long()
+    rv, ri = ref[0].float(), ref[1].long()
+    finite = rv[torch.isfinite(rv)]
+    scale = max(finite.abs().max().item() if finite.numel() else 1.0, 1e-30)
+    bits = int(np.log2(max(sub, chunk // fine)))
+    tol = (rtol + 2.0 ** (bits - 23)) * scale
+    both_inf = torch.isinf(gv) & torch.isinf(rv) & (gv == rv)
+    err = torch.where(both_inf, torch.zeros_like(gv), (gv - rv).abs())
+    max_err = err.max().item() if err.numel() else 0.0
+    bad_vals = int((err > tol).sum())
+    skipped = (ri < 0) | (gi < 0)
+    bad_skips = int((skipped & (gi != ri)).sum())
+    miss = ((gi != ri) & ~skipped).nonzero()
+    near_ties = 0
+    if miss.numel():
+        b, c = miss[:, 0], miss[:, 1]
+        rows = gi[b, c]
+        qf = q.to(x.dtype).float()
+        s = addvec[rows].float() + (x[rows].float() * qf[b]).sum(-1)
+        near_ties = int(((s - rv[b, c]).abs() <= tol).sum())
+    id_bad = int(miss.shape[0]) - near_ties
+    return {"max_abs_err": max_err, "bad_values": bad_vals,
+            "bad_skips": bad_skips, "id_mismatches": int(miss.shape[0]),
+            "near_ties": near_ties,
+            "ok": bad_vals == 0 and bad_skips == 0 and id_bad == 0}

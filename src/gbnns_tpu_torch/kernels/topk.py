@@ -15,6 +15,44 @@ from gbnns_tpu_torch._device import resolve_device
 from gbnns_tpu_torch.kernels.distance import pairwise_dists, squared_norms
 
 
+def _smallest_by_key(d: torch.Tensor, k: int):
+    """``smallest_k`` by a key that is unique per column: the value's IEEE
+    bits in signed-int order times 2^32, OR'd with the column (int64, 8
+    bytes an entry beside the 4 of ``d``)."""
+    bits = (d + 0.0).view(torch.int32)              # -0.0 orders as +0.0
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    del bits
+    key *= 1 << 32                                  # a shift, defined for < 0
+    key |= torch.arange(d.shape[1], device=d.device, dtype=torch.int64)
+    top, _ = torch.topk(key, k, dim=1, largest=False, sorted=True)
+    cols = top & 0xFFFFFFFF
+    return torch.gather(d, 1, cols), cols
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """The ``k`` smallest f32 values of each row of ``d (rows, cols)`` in
+    ascending order, ties to the lower column, as ``lax.top_k`` breaks
+    them: ``(vals, cols int64)``.
+
+    ``torch.topk`` picks the right values but breaks ties arbitrarily. So
+    it selects k + 1: a row whose (k+1)-th value differs from its k-th has
+    every copy of its k-th value inside the selection, which is then put
+    in (value, column) order; a row where they are equal (a tie across the
+    boundary) is selected again by ``_smallest_by_key``, whose int64 keys
+    cost 8 bytes an entry of those rows."""
+    d = d.float()
+    vals, cols = torch.topk(d, min(k + 1, d.shape[1]), dim=1, largest=False,
+                            sorted=True)
+    tied = (vals[:, k:] == vals[:, k - 1:k]).any(dim=1).nonzero()[:, 0]
+    cols, order = torch.sort(cols[:, :k], dim=1)
+    vals, order = torch.sort(torch.gather(vals[:, :k], 1, order), dim=1,
+                             stable=True)
+    cols = torch.gather(cols, 1, order)
+    if tied.numel():
+        vals[tied], cols[tied] = _smallest_by_key(d[tied], k)
+    return vals, cols
+
+
 def _smallest(d: torch.Tensor, i: torch.Tensor, k: int):
     """k smallest of ``d`` per row, ties to the earlier column."""
     top_d, order = torch.sort(d, dim=1, stable=True)
@@ -24,8 +62,10 @@ def _smallest(d: torch.Tensor, i: torch.Tensor, k: int):
 def knn_chunked(q: torch.Tensor, x: torch.Tensor, k: int, *,
                 metric: str = "l2", chunk: int = 65536):
     """kNN of ``q (nq, d)`` against ``x (n, d)`` on their device:
-    ``(dists (nq, k) f32, ids (nq, k) int32)`` ascending by distance.
-    Both are taken in full fp32 whatever their stored type."""
+    ``(dists (nq, k) f32, ids (nq, k) int32)`` ascending by distance, ties
+    to the lower id. Both are taken in full fp32 whatever their stored type.
+    Rows with a tie across a chunk's k-th value are selected again on 8-byte
+    keys (``smallest_k``)."""
     nq = q.shape[0]
     n = x.shape[0]
     if k > n:
@@ -37,7 +77,7 @@ def knn_chunked(q: torch.Tensor, x: torch.Tensor, k: int, *,
         d = pairwise_dists(q, xc, metric=metric,
                            x_sqnorms=squared_norms(xc))
         kk = min(k, d.shape[1])
-        cd, ci = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+        cd, ci = smallest_k(d, kk)
         best_d, best_i = _smallest(torch.cat([best_d, cd], 1),
                                    torch.cat([best_i, ci + off], 1), k)
     return best_d, best_i.to(torch.int32)

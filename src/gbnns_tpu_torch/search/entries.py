@@ -17,6 +17,7 @@ import torch
 
 from gbnns_tpu_torch._device import resolve_device
 from gbnns_tpu_torch.kernels.distance import pairwise_dists, squared_norms
+from gbnns_tpu_torch.kernels.topk import knn_chunked, smallest_k
 
 
 @dataclasses.dataclass
@@ -34,7 +35,6 @@ class CentroidEntries:
               iters: int = 8, seed: int = 0, sample: int | None = 262_144,
               device=None) -> "CentroidEntries":
         from gbnns_tpu_torch.build.kmeans import kmeans_fit
-        from gbnns_tpu_torch.kernels.topk import knn_chunked
 
         dev = resolve_device(device)
         lo = np.asarray(base_lo, np.float32)
@@ -77,13 +77,13 @@ class CentroidEntries:
         """(B, E) int32 start nodes: representatives of the E nearest
         centroids, nearest first (a row may repeat a node when two centroids
         share a representative; the walker's dedup absorbs it). The JAX
-        package's approximate top-k becomes an exact one."""
+        package's approximate top-k becomes an exact one, ties to the lower
+        centroid."""
         q = torch.as_tensor(queries_lo, dtype=torch.float32,
                             device=self.centroids.device)
         d = pairwise_dists(q, self.centroids, metric=self.metric,
                            x_sqnorms=self.cent_sq)
-        _, sel = torch.topk(d, min(E, self.centroids.shape[0]), dim=1,
-                            largest=False, sorted=True)
+        _, sel = smallest_k(d, min(E, self.centroids.shape[0]))
         return self.node_ids[sel]
 
 

@@ -88,3 +88,55 @@ def test_no_kernel_source_includes_torch_headers():
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "torch/extension.h" not in text and "cutlass" not in text
+
+
+def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
+    """The port's three sources: all three nvcc processes start before the
+    first is waited on, each compiles one source with the Hopper flags."""
+    events = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            events.append(("start", cmd))
+            self.out = cmd[cmd.index("-o") + 1]
+
+        def communicate(self):
+            events.append(("wait", None))
+            with open(self.out, "wb") as f:
+                f.write(b"so")
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / ".kernel_build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeProc)
+    names = ["scan_topk", "gated_topm", "gather"]
+    _build.build(names)
+    kinds = [e[0] for e in events]
+    assert kinds == ["start"] * 3 + ["wait"] * 3
+    for name, (_, cmd) in zip(names, events):
+        assert cmd[-1] == str(_build.CSRC / f"{name}.cu")
+        assert [c for c in cmd if c.endswith(".cu")] == [cmd[-1]]
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert _build.library_path(name).exists()
+
+
+def test_sources_include_only_cuda_headers_and_common():
+    allowed = {"<cuda_runtime.h>", "<cuda_fp16.h>", "<stdint.h>",
+               "<type_traits>", '"common.cuh"'}
+    sources = sorted(_build.CSRC.glob("*.cu")) + sorted(
+        _build.CSRC.glob("*.cuh"))
+    assert {p.name for p in sources} >= {"scan_topk.cu", "gated_topm.cu",
+                                         "gather.cu", "common.cuh"}
+    for src in sources:
+        for line in src.read_text().splitlines():
+            if line.startswith("#include"):
+                assert line.split()[1] in allowed, (src.name, line)
+
+
+def test_build_path_follows_the_shared_header(fake_csrc):
+    (fake_csrc / "common.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    (fake_csrc / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first

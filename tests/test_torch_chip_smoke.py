@@ -1,7 +1,8 @@
 """chip_smoke.py's phases rehearsed on the CPU at a small size: the corpus
 of n = 20,000 with its cached ground truth and projection, the fused service
-in bf16 and int8 over submit() and HTTP, the graph build, the walker
-checks, the graph_pallas service, and a teardown that leaves no thread.
+in bf16 and int8 over submit() and HTTP, the gated scan's probes sweep, the
+graph build, the walker checks, the graph_pallas service, and a teardown
+that leaves no thread.
 (The kernel phases and the launch and recall checks need the card.)"""
 
 import importlib.util
@@ -35,12 +36,15 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
     assert out.count("identical True") == 2
     for ef in (32, 48, 64):
         assert f"graph_pallas ef={ef}: R@1=" in out
+    for probes in (4, 8, 16, 32):
+        assert f"gated probes={probes} c=32: R@1=" in out
+    assert "GatedScanIndex: " in out and "'n_chunks': 2" in out
     assert "fused graph (20000, 32)" in out and "launches {" in out
     assert set(records) == {"binned_scan[bfloat16]", "binned_scan[int8]",
                             "binned_scan[bfloat16,packed]",
                             "merge_topc[bfloat16,c=12]",
                             "merge_topc[int8,c=16]", "merge_topc[build,c=33]",
-                            "row_gather"}
+                            "row_gather", "gated_topm"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
     assert set(threading.enumerate()) <= before
 
@@ -115,6 +119,36 @@ def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
     assert set(scan) == set(merge)
 
 
+def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):
+    """The card-only check of T4 against its plain version on a planned
+    batch, on the CPU with the timer replaced by a call that only runs each
+    function and no device to synchronize."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(6)
+    base = rng.normal(size=(4096, 32)).astype(np.float32)
+    idx = GatedScanIndex(base, fine=4, m=16, sub=64, chunk=512, tq=64,
+                         kmeans_sample=None, device="cpu")
+    records = {"gated_topm": {"launches": 1}}
+    ql = torch.from_numpy(rng.normal(size=(200, 32)).astype(np.float32))
+    chip_smoke.gated_check(idx, ql, records)
+    out = capsys.readouterr().out
+    assert "T4 gated_topm vs plain (probes 16)" in out and "'ok': True" in out
+    rec = records["gated_topm"]
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+    assert rec["library_ms"] is None and rec["yardstick_ms"] == 1.0
+    assert rec["launches"] == 1        # the main path's count is kept
+    assert set(rec) >= {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+
+
 def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
     """A thread alive before the run (another test's daemon, say) is not the
     run's to stop; a thread the run leaves behind fails it."""
@@ -124,6 +158,7 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
     monkeypatch.setattr(chip_smoke, "load_data", lambda *a: (None,) * 5)
     monkeypatch.setattr(chip_smoke, "serve_fused",
                         lambda *a, **k: {"r10": 1.0})
+    monkeypatch.setattr(chip_smoke, "gated_scan", lambda *a, **k: [])
     monkeypatch.setattr(chip_smoke, "graph_build",
                         lambda *a, **k: (None, None, None))
     monkeypatch.setattr(chip_smoke, "walker_checks", lambda *a, **k: None)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 binned_scan, K2 merge_topc, K3 row_gather)
-against their plain PyTorch versions on the same card inputs, and the walks
+"""The port's CUDA kernels (K1 binned_scan, K2 merge_topc, K3 row_gather,
+T4 gated_topm) against their plain PyTorch versions on the same card inputs, and the walks
 and indexes built on them against the same on the CPU.
 
 These need an NVIDIA GPU and nvcc, so they carry the ``cuda`` marker and skip
@@ -88,6 +88,25 @@ def test_fp32_and_wide_scans_match_plain(dev, kind, d, packed):
     assert rep["ok"], rep
     if kind == "int8":
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fp16_scan_matches_plain(dev, d, packed):
+    """K1's fp16 kind: exact products, fp32 sums."""
+    n, B = 4096, 300
+    q, x, add, _ = (t.to(dev) if t is not None else None
+                    for t in _scan_inputs(n, d, B, False))
+    q, x = q.to(torch.float16), x.to(torch.float16)
+    add[-5:] = float("inf")
+    before = st.launches["binned_scan"]
+    got = st.binned_scan(q, x, add, bin_size=1024, packed=packed)
+    torch.cuda.synchronize()
+    assert st.launches["binned_scan"] == before + 1
+    ref = st.binned_scan_plain(q, x, add, bin_size=1024, packed=packed)
+    rep = st.scan_agreement(got, ref, q, x, add, bin_size=1024,
+                            packed=packed, rtol=1e-5)
+    assert rep["ok"], rep
 
 
 def test_binned_scan_kernel_odd_bin(dev):
@@ -272,10 +291,112 @@ def test_built_library_is_reused(dev):
     from gbnns_tpu_torch.kernels import _build
 
     st._library()
+    st._gated_library()
     gather._library()
-    for name in ("scan_topk", "gather"):
+    for name in ("scan_topk", "gated_topm", "gather"):
         path = _build.library_path(name)
         stamp = path.stat().st_mtime_ns
         _build.build([name])             # already built: no nvcc
         assert path.stat().st_mtime_ns == stamp
         assert path.parent.parent.name == ".kernel_build"
+
+
+def _gated_inputs(n_pad, d, B, tq, chunk, dtype, mask, seed=0):
+    """A prescaled corpus with padding rows, queries, and a tile mask:
+    "all", "none" or "random" cells kept."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_pad, d)).astype(np.float32) * 2.0 - 0.5
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    add = (x ** 2).sum(-1).astype(np.float32)
+    add[-37:] = np.inf
+    cells = (n_pad // chunk) * (B // tq)
+    keep = {"all": np.ones(cells), "none": np.zeros(cells),
+            "random": rng.random(cells) < 0.5}[mask]
+    return (torch.from_numpy(q).to(dtype),
+            torch.from_numpy(-2.0 * x).to(dtype), torch.from_numpy(add),
+            torch.from_numpy(keep.astype(np.int32)))
+
+
+# (n_pad, d, B, fine, m, sub, chunk, tq): the CPU tests' geometry (chunk /
+# fine = 128 > sub, so km comes from chunk / fine), GatedScanIndex's
+# defaults (km from sub), a tile of 64 queries (two tiles share a block),
+# a 32-winner list and the other widths
+GATED_SHAPES = [
+    (4096, 32, 192, 4, 16, 64, 512, 64),
+    (65536, 32, 1024, 32, 16, 1024, 16384, 512),
+    (8192, 16, 384, 8, 32, 256, 2048, 128),
+    (8192, 64, 256, 16, 8, 128, 1024, 256),
+    (4096, 128, 256, 4, 16, 64, 512, 128),
+]
+
+
+@pytest.mark.parametrize("shape", GATED_SHAPES,
+                         ids=["-".join(map(str, s)) for s in GATED_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("mask", ["all", "none", "random"])
+def test_gated_topm_kernel_matches_plain(dev, shape, dtype, mask):
+    n_pad, d, B, fine, m, sub, chunk, tq = shape
+    q, x, add, tile_mask = (t.to(dev) for t in _gated_inputs(
+        n_pad, d, B, tq, chunk, dtype, mask))
+    kw = dict(fine=fine, m=m, sub=sub, chunk=chunk, tq=tq)
+    before = st.launches["gated_topm"]
+    got = st.gated_topm_scan(q, x, add, tile_mask, **kw)
+    torch.cuda.synchronize()
+    assert st.launches["gated_topm"] == before + 1
+    ref = st.gated_topm_scan_plain(q, x, add, tile_mask, **kw)
+    assert got[0].shape == ref[0].shape == (B, m * (n_pad // chunk))
+    rep = st.gated_agreement(got, ref, q, x, add, fine=fine, sub=sub,
+                             chunk=chunk)
+    assert rep["ok"], rep
+    skipped = (ref[1] < 0)
+    assert torch.equal(got[1] < 0, skipped)
+    if mask == "none":
+        assert skipped.all() and torch.isinf(got[0]).all()
+
+
+def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):
+    q, x, add, tile_mask = (t.to(dev) for t in _gated_inputs(
+        4096, 32, 128, 64, 512, torch.bfloat16, "all"))
+    kw = dict(fine=4, sub=64, chunk=512, tq=64)
+    before = st.launches["gated_topm"]
+    with pytest.raises(ValueError, match="at most 32"):
+        st.gated_topm_scan(q, x, add, tile_mask, m=64, **kw)
+    with pytest.raises(ValueError, match="d in"):
+        st.gated_topm_scan(q[:, :24], x[:, :24], add, tile_mask, m=16, **kw)
+    with pytest.raises(TypeError, match="int8"):
+        st.gated_topm_scan(q.to(torch.int8), x.to(torch.int8), add,
+                           tile_mask, m=16, **kw)
+    with pytest.raises(ValueError, match="pad B"):
+        st.gated_topm_scan(q[:100], x, add, tile_mask, m=16, **kw)
+    assert st.launches["gated_topm"] == before
+
+
+def test_gated_index_on_the_card(dev, monkeypatch):
+    """GatedScanIndex on the card: one T4 launch a search, answers as with
+    the plain scan on the same index, recall as the CPU tests ask."""
+    from gbnns_tpu_torch.eval.recall import exact_ground_truth, recall_at_k
+    from gbnns_tpu_torch.search import gated
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(64, 32)).astype(np.float32) * 3
+    base = (centers[rng.integers(0, 64, 60000)]
+            + rng.normal(size=(60000, 32)).astype(np.float32))
+    query = (centers[rng.integers(0, 64, 1000)]
+             + rng.normal(size=(1000, 32)).astype(np.float32))
+    idx = GatedScanIndex(base, chunk=4096, sub=512, device=dev)
+    gt = exact_ground_truth(query, base, k=10, device=dev)
+    got = {}
+    for probes in (4, 32):
+        before = st.launches["gated_topm"]
+        ids, dists, kept = idx.search(query, k=10, probes=probes,
+                                      return_kept_frac=True)
+        torch.cuda.synchronize()
+        assert st.launches["gated_topm"] == before + 1
+        assert torch.isfinite(dists).all() and 0 < kept <= 1
+        got[probes] = ids.cpu().numpy()
+    assert recall_at_k(got[32], gt, 10) >= 0.93
+    monkeypatch.setattr(gated, "gated_topm_scan", st.gated_topm_scan_plain)
+    plain = idx.search(query, k=10, probes=4)[0].cpu().numpy()
+    assert (plain == got[4]).all(axis=1).mean() >= 0.99

@@ -121,6 +121,11 @@ def _ctor_graph_index(base):
     return GraphIndex.build(base, K=8, graph=_graph(base), ncent=None)
 
 
+def _ctor_gated(base):
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+    return GatedScanIndex(base, chunk=64, sub=64, fine=4, kmeans_sample=None)
+
+
 def _ctor_graph_services(base):
     from gbnns_tpu_torch.serve import SearchService
     for engine in ("graph", "graph_pallas"):
@@ -133,7 +138,8 @@ def _ctor_graph_services(base):
                                   _ctor_knn, _ctor_projection,
                                   _ctor_graph_build, _ctor_kmeans,
                                   _ctor_entries, _ctor_payload,
-                                  _ctor_graph_index, _ctor_graph_services])
+                                  _ctor_graph_index, _ctor_graph_services,
+                                  _ctor_gated])
 def test_entry_points_raise_without_cuda(ctor):
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -146,6 +152,14 @@ def test_cpu_runs_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_gated_index_is_exported_lazily():
+    import gbnns_tpu_torch
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    assert "GatedScanIndex" in dir(gbnns_tpu_torch)
+    assert gbnns_tpu_torch.GatedScanIndex is GatedScanIndex
 
 
 def test_cli_serve_raises_without_cuda(tmp_path):
