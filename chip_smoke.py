@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
-scan, the cluster-gated scan and the graph walker.
+scan (binned and shifted), the cluster-gated scan, the exact fused kNN and
+the graph walker.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,16 @@ each printing its wall time:
    QPS (median of ten requests), the recall run with the launch counts set
    to 0 before and read after; R@10 must lie within 0.005 of the JAX
    reference's rows on these inputs;
-5. the gated scan: GatedScanIndex at its defaults (fine 32, m 16, sub
+5. the shifted scan: FusedScanIndex(mode="shifted", bf16) with its build
+   seconds and the width T3 takes; all queries at c = 12 with the launch
+   counts set to 0 before and read after (one T3 launch, no K2), R@10
+   within 0.005 of this run's binned bf16 R@10, and the median of ten
+   searches; T3 against its plain version at the serving shape (values
+   within SCAN_RTOL plus one key quantum, ids equal except at counted
+   near-ties) and, at B = 2,048, in fp16 and f32; its record: T3 ms
+   (median of five), bound, plain ms and a bf16 torch.matmul of the same
+   augmented operands;
+6. the gated scan: GatedScanIndex at its defaults (fine 32, m 16, sub
    1024, chunk 16384, tq 512, seed 0) with its build seconds (k-means,
    assignment, packing, upload) and stats; T4 gated_topm against its plain
    version on all queries planned at probes 16 (values within SCAN_RTOL
@@ -38,7 +48,7 @@ each printing its wall time:
    and QPS (median of ten synchronized searches); R@10 must not fall as
    probes grows (within tests/test_gated.py's slack) and reach 0.95 at
    probes 32;
-6. graph build on the projected corpus: build_knn_graph(backend="fused",
+7. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
    read after; K1 in its packed form and K2 at c = K + 1 against their
@@ -47,14 +57,21 @@ each printing its wall time:
    exact build's graph on 1,024 sampled nodes at least the JAX package's
    0.7874 less 0.02; centroid entries (n / 256 centroids) and the bf16 hop
    payload;
-7. K3 row_gather against its plain version on 65,536 rows of that payload;
-8. walker vs plain: 1,024 queries walked with K3 and with the plain
+8. the exact fused kNN (T6 knn_topk) at the build's shape: 8,192 rows of
+   the projected corpus against all of it, k = 33, l2, f32, with the launch
+   count set to 0 before and read after; held against knn_chunked (within
+   1e-5 of the largest distance, ids equal except at near-ties) and, on
+   1,024 queries, against its plain version in l2, ip and bf16; its record
+   with knn_chunked's time as the yardstick (no single PyTorch call
+   computes an exact k-NN) and an fp32 torch.matmul of the same shape;
+9. K3 row_gather against its plain version on 65,536 rows of that payload;
+10. walker vs plain: 1,024 queries walked with K3 and with the plain
    gather, identical; the f32-payload walk identical to the plain walker's;
-9. serving: SearchService(engine="graph_pallas") over the 16,384 queries
+11. serving: SearchService(engine="graph_pallas") over the 16,384 queries
    at ef = 32, 48, 64 (submit() and HTTP), with R@1, R@10, K3 launches per
    request (one per hop) and QPS; R@10 at ef = 64 at least 0.95 and not
    falling as ef grows;
-10. teardown: services stopped, HTTP servers shut down, threads joined.
+12. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -103,14 +120,25 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
 GATED_PROBES = (4, 8, 16, 32)
 GATED_C = 32
 GATED_R10_MIN = 0.95
+# the shifted scan's check of its fp16 and f32 kinds; the exact kNN's
+# shape (the graph build's node chunk and K + 1) and its slices
+SHIFTED_KIND_B = 2048
+KNN_Q = BUILD_CHUNK
+KNN_K = GRAPH_K + 1
+KNN_SLICE = 1024
 SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
+SHIFTED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/shifted_scan.cu"
 GATED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gated_topm.cu"
 GATHER_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gather.cu"
-KERNEL_SOURCES = ("scan_topk", "gated_topm", "gather")
+KNN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/distance_topk.cu"
+KERNEL_SOURCES = ("scan_topk", "shifted_scan", "gated_topm", "gather",
+                  "distance_topk")
 REPLACES = {"binned_scan": "src/gbnns_tpu/kernels/scan_topk_pallas.py:44",
             "merge_topc": "src/gbnns_tpu/kernels/scan_topk_pallas.py:559",
+            "shifted_scan": "src/gbnns_tpu/kernels/scan_topk_pallas.py:133",
             "gated_topm": "src/gbnns_tpu/kernels/scan_topk_pallas.py:397",
-            "row_gather": "src/gbnns_tpu/kernels/gather_pallas.py:40"}
+            "row_gather": "src/gbnns_tpu/kernels/gather_pallas.py:40",
+            "knn_topk": "src/gbnns_tpu/kernels/distance_topk_pallas.py:48"}
 
 
 class SmokeFailure(Exception):
@@ -155,6 +183,25 @@ def time_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median device time of ``reps`` single calls of ``fn`` (CUDA events
+    around each), after one warm-up call."""
+    import numpy as np
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
@@ -524,6 +571,132 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     return out
 
 
+def _shifted_check(st, idx, qlo, label: str) -> dict:
+    """T3 on the operands ``idx.search`` gives it for ``qlo``, against its
+    plain version: values within SCAN_RTOL plus one key quantum, ids equal
+    except at counted near-ties."""
+    import torch
+
+    q_aug = idx.shifted_queries(qlo)
+    kw = dict(bin_size=idx.bin_size)
+    got = st.shifted_scan(q_aug, idx.x_aug, **kw)
+    ref = st.shifted_scan_plain(q_aug, idx.x_aug, **kw)
+    torch.cuda.synchronize()
+    rep = st.shifted_agreement(got, ref, q_aug, idx.x_aug, rtol=SCAN_RTOL,
+                               **kw)
+    say(f"T3 shifted_scan[{label}] vs plain (B={q_aug.shape[0]}): {rep}")
+    check(rep["ok"], f"T3 {label} disagrees with its plain version")
+    return rep
+
+
+def shifted_fused(base, query, base_lo, gt, trained, device, records,
+                  binned_r10: float, targets: bool, timed: int) -> dict:
+    """FusedScanIndex(mode="shifted") in bf16: its build, one search of all
+    projected queries at c = 12 with the launch counts set to 0 before and
+    read after, R@10 beside the same run's binned bf16, and timed searches;
+    on the card T3 against its plain version at the serving shape and in
+    fp16 and f32, with its record."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    c = REFERENCE["bfloat16"]["c"]
+    t0 = time.perf_counter()
+    idx = st.FusedScanIndex(base, base_lo, mode="shifted",
+                            scan_dtype="bfloat16", device=device)
+    sync()
+    width = idx.x_aug.shape[1]
+    say(f"FusedScanIndex(shifted, bf16): {time.perf_counter() - t0:.2f} s; "
+        f"the kernel takes d_aug = {width} (d' = {idx.d_lo} + 4, no "
+        f"padding), x_aug {tuple(idx.x_aug.shape)}")
+    qf = torch.from_numpy(query).to(device)
+    ql = projector(trained)(qf)
+    st.reset_launches()
+    ids = idx.search(qf, ql, k=10, c=c)[0].cpu().numpy()
+    counts = {name: st.launches[name] for name in ("shifted_scan",
+                                                   "merge_topc")}
+    r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+    check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+          and ids.max() < base.shape[0], "shifted result ids out of range")
+    batch_s = []
+    for _ in range(timed):
+        sync()
+        t0 = time.perf_counter()
+        idx.search(qf, ql, k=10, c=c)
+        sync()
+        batch_s.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(batch_s, [25, 50, 75])
+    out = {"engine": f"fused shifted bfloat16 c={c}", "r1": r1, "r10": r10,
+           "qps": query.shape[0] / med,
+           "search_ms": [t * 1e3 for t in batch_s], "launches": counts}
+    say(f"fused shifted c={c}: R@1={r1:.4f} R@10={r10:.4f} (binned bf16 of "
+        f"this run {binned_r10:.4f}), {med * 1e3:.2f} ms a search of "
+        f"{query.shape[0]} projected queries (median of {timed}; quartiles "
+        f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f}), QPS={out['qps']:,.0f}, "
+        f"launches {counts}")
+    say(json.dumps(out))
+    records.setdefault("shifted_scan", {})["launches"] = counts["shifted_scan"]
+    if device.type == "cuda":
+        check(counts == {"shifted_scan": 1, "merge_topc": 0},
+              f"a shifted search launched {counts}, not one T3 and no K2")
+    if targets:
+        check(abs(r10 - binned_r10) <= R10_TOL,
+              f"shifted R@10 {r10:.4f} is not within {R10_TOL} of the binned "
+              f"bf16 {binned_r10:.4f}")
+    if device.type == "cuda":
+        shifted_kernel_check(st, idx, ql, base, base_lo, device, records)
+    del idx
+    sync()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def shifted_kernel_check(st, idx, ql, base, base_lo, device, records):
+    """T3 against its plain version at the serving shape (bf16) and at
+    B = SHIFTED_KIND_B in fp16 and f32; its record: T3 ms (median of five),
+    bound (2·B·n_pad·d_aug at the TPU kernel's d_aug, bf16 rate), plain ms
+    and a bf16 torch.matmul of the same augmented operands."""
+    import torch
+
+    rep = _shifted_check(st, idx, ql, "bfloat16")
+    q_aug = idx.shifted_queries(ql).to(torch.bfloat16)
+    kw = dict(bin_size=idx.bin_size)
+    ms = median_ms(lambda: st.shifted_scan(q_aug, idx.x_aug, **kw))
+    plain_ms = time_ms(lambda: st.shifted_scan_plain(q_aug, idx.x_aug, **kw),
+                       2)
+    lib_ms = time_ms(lambda: torch.matmul(idx.x_aug, q_aug.T), 3)
+    torch.cuda.empty_cache()
+    B, width = q_aug.shape
+    n_pad = idx.x_aug.shape[0]
+    d_aug = idx.d_lo + 4        # the TPU kernel's work, not a padded width
+    n_bins = n_pad // idx.bin_size
+    b_ms, b_by = bound_ms(B * width * 2 + n_pad * width * 2 + n_bins * B * 8,
+                          2.0 * B * n_pad * d_aug, "bfloat16")
+    say(f"T3 [B={B} n_pad={n_pad} d_aug={width}]: {ms:.3f} ms (median of 5), "
+        f"plain {plain_ms:.3f} ms, torch.matmul of the augmented bf16 "
+        f"operands {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    records["shifted_scan"] = {
+        **dict(name="shifted_scan", route="cuda", source=SHIFTED_SOURCE,
+               replaces=REPLACES["shifted_scan"], launches=None,
+               max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms),
+        **records.get("shifted_scan", {})}
+    for dtype in ("float16", "float32"):
+        kind = st.FusedScanIndex(base, base_lo, mode="shifted",
+                                 scan_dtype=dtype, device=device)
+        _shifted_check(st, kind, ql[:SHIFTED_KIND_B], dtype)
+        del kind
+        torch.cuda.empty_cache()
+
+
 def _gated_operands(idx, ql, probes: int):
     """T4's operands and options as ``idx.search`` gives them at
     ``probes``, and the least time the card could take for them: the
@@ -756,6 +929,90 @@ def graph_build(base_lo, device, records, targets: bool):
     return graph, entries, payload
 
 
+def exact_knn(base_lo, device, records) -> None:
+    """T6 knn_topk on the graph build's shape: the first KNN_Q rows of the
+    projected corpus against all of it, k = K + 1, l2, f32, with the launch
+    count set to 0 before and read after; held against knn_chunked (the
+    exact sweep of the xla build) and, on KNN_SLICE queries, against its
+    plain version, in l2, ip and bf16; its record, with knn_chunked's time
+    as the yardstick and an fp32 torch.matmul of the same shape beside it."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import distance_topk as dt
+    from gbnns_tpu_torch.kernels.topk import knn_chunked
+
+    x = torch.from_numpy(base_lo).to(device)
+    q = x[:KNN_Q]
+    nq, n, d = q.shape[0], x.shape[0], x.shape[1]
+    dt.reset_launches()
+    got = dt.knn_topk(q, x, KNN_K)
+    launches = dt.launches["knn_topk"]
+    records.setdefault("knn_topk", {})["launches"] = launches
+    say(f"knn_topk of {nq} x {n} x {d}, k={KNN_K}: launches {launches}")
+    if device.type == "cuda":
+        check(launches == 1, f"knn_topk launched T6 {launches} times")
+    check(tuple(got[1].shape) == (nq, KNN_K) and bool(torch.isfinite(
+        got[0]).all()) and int(got[1].min()) >= 0 and int(got[1].max()) < n,
+        "knn_topk result malformed")
+    ref = knn_chunked(q, x, KNN_K)
+    rep = dt.knn_agreement(got, ref, q, x)
+    say(f"T6 knn_topk vs knn_chunked ({nq} queries): {rep}")
+    check(rep["ok"], "T6 disagrees with knn_chunked")
+    del ref
+    qs = q[:KNN_SLICE]
+    for label, args, kw in (
+            ("l2", (qs, x), {}), ("ip", (qs, x), dict(metric="ip")),
+            ("bf16", (qs.to(torch.bfloat16), x.to(torch.bfloat16)), {})):
+        part = dt.knn_topk(*args, KNN_K, **kw)
+        plain = dt.knn_topk_plain(*args, KNN_K, **kw)
+        r = dt.knn_agreement(part, plain, *args, **kw)
+        say(f"T6 knn_topk[{label}] vs plain ({qs.shape[0]} queries): {r}")
+        check(r["ok"], f"T6 ({label}) disagrees with its plain version")
+        if label == "l2":
+            max_err = max(r["max_abs_err"], rep["max_abs_err"])
+    if device.type == "cuda":
+        knn_record(q, x, max_err, records)
+
+
+def knn_record(q, x, max_err: float, records) -> None:
+    """T6's record on ``q`` against ``x``: its time, its plain version's,
+    its bound (fp32 operations), knn_chunked's time as the yardstick and an
+    fp32 torch.matmul of the same shape beside it."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import distance_topk as dt
+    from gbnns_tpu_torch.kernels.distance import exact_fp32
+    from gbnns_tpu_torch.kernels.topk import knn_chunked
+
+    nq, n, d = q.shape[0], x.shape[0], x.shape[1]
+    ms = time_ms(lambda: dt.knn_topk(q, x, KNN_K))
+    plain_ms = time_ms(lambda: dt.knn_topk_plain(q, x, KNN_K), 2)
+    yard_ms = time_ms(lambda: knn_chunked(q, x, KNN_K), 2)
+    chunk = 65536   # knn_chunked's: the (nq, n) product takes 33 GB at once
+
+    def matmul():
+        with exact_fp32():
+            for off in range(0, n, chunk):
+                torch.matmul(q, x[off:off + chunk].T)
+
+    mm_ms = time_ms(matmul, 2)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(nq * d * 4 + n * d * 4 + nq * KNN_K * 8,
+                          2.0 * nq * n * d, "float32")
+    say(f"T6 [{nq} x {n} x {d}, k={KNN_K}]: {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); library: none (no "
+        f"single PyTorch call computes an exact k-NN), yardstick knn_chunked "
+        f"{yard_ms:.3f} ms, fp32 torch.matmul of the same shape in "
+        f"{-(-n // chunk)} chunks of {chunk} rows {mm_ms:.3f} ms")
+    records["knn_topk"] = {
+        **dict(name="knn_topk", route="cuda", source=KNN_SOURCE,
+               replaces=REPLACES["knn_topk"], launches=None,
+               max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               yardstick_ms=yard_ms, matmul_ms=mm_ms),
+        **records.get("knn_topk", {})}
+
+
 def walker_checks(graph, entries, payload, base_lo, query, trained, device):
     """1,024 queries: the walk with K3 against the same walk with the plain
     gather, and the f32-payload walk against the plain walker: identical."""
@@ -951,16 +1208,23 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
         with Phase("kernels vs plain"):
             kernel_checks(base, query, base_lo, gt, trained, device,
                           records, targets)
+    served = {}
     for dtype in ("bfloat16", "int8"):
         with Phase(f"serve fused {dtype}"):
-            serve_fused(dtype, base, query, base_lo, gt, trained, device,
-                        records, targets, timed)
+            served[dtype] = serve_fused(dtype, base, query, base_lo, gt,
+                                        trained, device, records, targets,
+                                        timed)
+    with Phase("fused shifted"):
+        shifted_fused(base, query, base_lo, gt, trained, device, records,
+                      served["bfloat16"]["r10"], targets, timed)
     with Phase("gated scan"):
         gated_scan(base, query, base_lo, gt, trained, device, records,
                    targets, timed)
     with Phase("graph build"):
         graph, entries, payload = graph_build(base_lo, device, records,
                                               targets)
+    with Phase("exact kNN (T6)"):
+        exact_knn(base_lo, device, records)
     if device.type == "cuda":
         with Phase("kernels vs plain: row_gather"):
             gather_check(payload, 4 * query.shape[0], device, records)

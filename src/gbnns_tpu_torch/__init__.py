@@ -5,13 +5,16 @@ NVIDIA H100.
 The JAX package stays beside it as the reference; this package imports none
 of it, nor JAX. Module names follow the JAX package's, so each module's
 counterpart is found by name (``search/walker.py`` is ``walker_jax.py``,
-``search/walker_payload.py`` is ``walker_pallas.py``). Ported so far
-(ROADMAP.md): the fused-scan serving path, the graph serving path and the
-cluster-gated scan.
+``search/walker_payload.py`` is ``walker_pallas.py``,
+``kernels/distance_topk.py`` is ``distance_topk_pallas.py``). Ported so far
+(ROADMAP.md): the fused-scan serving path (binned and shifted), the graph
+serving path, the cluster-gated scan and the exact fused kNN; every Pallas
+kernel of the JAX package has its CUDA counterpart.
 
   io/        fvecs/ivecs codecs, dataset registry, synthetic data
-  kernels/   distances, exact kNN, the binned scan, top-c merge, gated
-             top-m scan and row gather (hand-written CUDA kernels under
+  kernels/   distances, exact kNN (chunked, and the fused exact kNN), the
+             binned and shifted-key scans, top-c merge, gated top-m scan
+             and row gather (hand-written CUDA kernels under
              kernels/csrc/)
   build/     kNN-graph build and its host passes, k-means
   dimred/    projection models and the checkpoint loader

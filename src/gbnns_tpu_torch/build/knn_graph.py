@@ -23,6 +23,8 @@ from gbnns_tpu_torch._device import resolve_device
 
 def build_knn_graph(base, K: int, *, metric: str = "l2",
                     node_chunk: int = 8192, chunk: int = 65536,
+                    exact: bool = True, recall_target: float = 0.99,
+                    dtype=None, precision: str | None = None,
                     connect: bool = True, backend: str = "xla",
                     reverse_frac: float = 0.5, verbose: bool = False,
                     stats: dict | None = None, device=None) -> np.ndarray:
@@ -31,10 +33,18 @@ def build_knn_graph(base, K: int, *, metric: str = "l2",
     Self edges are excluded by taking top-(K+1) and dropping each node's own
     id; where the fused scan lost it to a bin collision, the worst candidate
     goes instead. ``backend``: "xla" (exact) or "fused" (binned scan, the
-    fast approximate sweep). Selection is exact in both (the JAX package's
-    ``exact=False`` approximate top-k has no counterpart here). ``stats``,
-    when given, receives the seconds of the sweep (``scan_s``), of
-    ``add_reverse_edges`` (``reverse_s``) and of ``ensure_connected``
+    fast approximate sweep).
+
+    The JAX package's keywords, in its order: ``exact`` and
+    ``recall_target`` are accepted and selection stays exact (the TPU's
+    approximate top-k has no counterpart here); ``precision`` is accepted
+    and the exact sweep always runs full fp32 with TF32 off, as JAX's
+    ``"highest"``; ``dtype`` (a torch dtype, its name, or a numpy dtype
+    such as ``jnp.bfloat16``) casts the exact sweep's inputs before the
+    distances, so ``bfloat16`` gives the graph of the bf16-rounded vectors
+    with fp32 sums. As in JAX, ``dtype`` does not reach the fused backend.
+    ``stats``, when given, receives the seconds of the sweep (``scan_s``),
+    of ``add_reverse_edges`` (``reverse_s``) and of ``ensure_connected``
     (``connect_s``).
     """
     if backend == "pallas":
@@ -42,7 +52,7 @@ def build_knn_graph(base, K: int, *, metric: str = "l2",
             "backend='pallas' was demoted in round 4 (loses at every "
             "measured k — results/build_backend_ab.json); use "
             "backend='xla' (exact) or 'fused' (fast approx), or call "
-            "kernels.distance_topk_pallas.knn_pallas directly")
+            "kernels.distance_topk.knn_topk directly")
     if backend not in ("xla", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
@@ -59,8 +69,11 @@ def build_knn_graph(base, K: int, *, metric: str = "l2",
         from gbnns_tpu_torch.kernels.topk import knn_fused
 
         xb = torch.from_numpy(base).to(dev)
+        if dtype is not None:
+            xb = xb.to(_torch_dtype(dtype))
         _, ids = knn_fused(xb, xb, K + 1, metric=metric, chunk=chunk,
-                           q_chunk=node_chunk)
+                           q_chunk=node_chunk, exact=exact,
+                           recall_target=recall_target, precision=precision)
         ids_all = ids.cpu().numpy()
     stats["scan_s"] = time.perf_counter() - t0
     graph = _drop_self(ids_all, 0)
@@ -77,6 +90,19 @@ def build_knn_graph(base, K: int, *, metric: str = "l2",
               f"reverse edges {stats['reverse_s']:.2f} s, connect "
               f"{stats['connect_s']:.2f} s", flush=True)
     return graph
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, its name, or a numpy dtype (also
+    ml_dtypes' ``bfloat16``, which JAX's ``jnp.bfloat16`` is)."""
+    if isinstance(dtype, torch.dtype):
+        found = dtype
+    else:
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        found = getattr(torch, name, None)
+    if not isinstance(found, torch.dtype) or not found.is_floating_point:
+        raise ValueError(f"dtype must be a float type, got {dtype!r}")
+    return found
 
 
 @torch.no_grad()

@@ -61,7 +61,7 @@ def cmd_build(args):
     t0 = time.perf_counter()
     graph = build_knn_graph(base, args.k, metric=args.metric,
                             chunk=args.chunk, node_chunk=args.node_chunk,
-                            connect=not args.no_connect,
+                            exact=not args.approx, connect=not args.no_connect,
                             backend=args.backend, verbose=args.verbose,
                             device=args.device)
     dt = time.perf_counter() - t0
@@ -102,8 +102,8 @@ def make_parser() -> argparse.ArgumentParser:
     sp.add_argument("--chunk", type=int, default=65536)
     sp.add_argument("--node-chunk", type=int, default=8192, dest="node_chunk")
     sp.add_argument("--approx", action="store_true",
-                    help="accepted for the JAX package's scripts; selection "
-                         "is exact in both backends here")
+                    help="exact=False, as in the JAX package's build; "
+                         "selection is exact in both backends here")
     sp.add_argument("--no-connect", action="store_true", dest="no_connect")
     sp.add_argument("--backend", default="xla", choices=["xla", "fused"],
                     help="candidate sweep: exact (fp32 products + topk) | "

@@ -94,6 +94,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need (a copy only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error."""
     if err != 0:

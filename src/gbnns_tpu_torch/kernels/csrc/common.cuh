@@ -1,4 +1,5 @@
-// Device helpers shared by the scan kernels (scan_topk.cu, gated_topm.cu):
+// Device helpers shared by the scan kernels (scan_topk.cu, gated_topm.cu,
+// shifted_scan.cu, distance_topk.cu):
 // the element kinds of the C interfaces, the IEEE-f32 total-order flip, and
 // the exact widening of 16-bit floats to f32. Plain CUDA: no PyTorch or
 // CUTLASS header.
@@ -52,6 +53,16 @@ __device__ __forceinline__ void half8_to_f32(uint4 v, float* f) {
       f[2 * k + 1] = bf16_hi(w[k]);
     }
   }
+}
+
+// One 8-byte group of four bf16 (KIND kBf16) or fp16 (kF16) values -> four
+// floats (exact).
+template <int KIND>
+__device__ __forceinline__ float4 half4_to_f32(uint2 v) {
+  if constexpr (KIND == kF16)
+    return make_float4(f16_lo(v.x), f16_hi(v.x), f16_lo(v.y), f16_hi(v.y));
+  else
+    return make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
 }
 
 }  // namespace gbnns

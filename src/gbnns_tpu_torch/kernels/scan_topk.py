@@ -16,15 +16,23 @@ query's ranking, so it is left out):
   dots and ``score = addvec[x] + dot * alpha[q]``, ``alpha = -2/(sx*sq)``
   (l2) or ``-1/(sx*sq)``; ``addvec`` is the norm of the dequantized corpus.
 
+The shifted-key scan (``FusedScanIndex(mode="shifted")``, ``shifted_scan``)
+folds the whole distance into one product of augmented operands
+(``augment_corpus``, ``augment_queries``): ``‖x‖² − 2q·x + ‖q‖²`` (l2) or
+``C_q − q·x`` (ip), non-negative but for rounding, so the raw IEEE bits order
+as signed ints and the packed key needs no flip.
+
 The cluster-gated scan of ``search/gated.py`` (``gated_topm_scan``) scores
 only the (corpus chunk x query tile) cells its tile mask keeps, and gives
 each query the ``m`` best fine-bin winners of each kept chunk.
 
-Each of ``binned_scan``, ``merge_topc`` and ``gated_topm_scan`` launches its
-CUDA kernel (``csrc/scan_topk.cu``: K1 and K2; ``csrc/gated_topm.cu``: T4)
-for CUDA tensors and takes its plain PyTorch version (``binned_scan_plain``,
-``merge_topc_plain``, ``gated_topm_scan_plain``) only for CPU tensors.
-``launches`` counts the kernel launches of each wrapper.
+Each of ``binned_scan``, ``merge_topc``, ``shifted_scan`` and
+``gated_topm_scan`` launches its CUDA kernel (``csrc/scan_topk.cu``: K1 and
+K2; ``csrc/shifted_scan.cu``: T3; ``csrc/gated_topm.cu``: T4) for CUDA
+tensors and takes its plain PyTorch version (``binned_scan_plain``,
+``merge_topc_plain``, ``shifted_scan_plain``, ``gated_topm_scan_plain``)
+only for CPU tensors. ``launches`` counts the kernel launches of each
+wrapper.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ _KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2,
           torch.float16: 3}
 _INT_MAX = 0x7FFFFFFF
 
-launches = _build.LaunchCounts("binned_scan", "merge_topc", "gated_topm")
+launches = _build.LaunchCounts("binned_scan", "merge_topc", "shifted_scan",
+                               "gated_topm")
 reset_launches = launches.reset
 
 
@@ -87,6 +96,16 @@ def _library():
     return lib
 
 
+def _shifted_library():
+    lib = _build.load("shifted_scan")
+    if not getattr(lib, "_gbnns_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gbnns_shifted_scan.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gbnns_shifted_scan.restype = i
+        lib._gbnns_bound = True
+    return lib
+
+
 def _gated_library():
     lib = _build.load("gated_topm")
     if not getattr(lib, "_gbnns_bound", False):
@@ -95,12 +114,6 @@ def _gated_library():
         lib.gbnns_gated_topm.restype = i
         lib._gbnns_bound = True
     return lib
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_scan_args(q, x, addvec, alpha, bin_size, packed) -> bool:
@@ -188,9 +201,9 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     if not _kernel_width(d):
         raise ValueError(f"the scan kernel takes d in {SCAN_WIDTHS} or a "
                          f"larger multiple of 16, got {d}")
-    q, x = _aligned(q), _aligned(x)
-    addvec = _aligned(addvec.float())
-    alpha = _aligned(alpha.float()) if quant else None
+    q, x = _build.aligned(q), _build.aligned(x)
+    addvec = _build.aligned(addvec.float())
+    alpha = _build.aligned(alpha.float()) if quant else None
     n_bins = x.shape[0] // bin_size
     vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
     ids = torch.empty((n_bins, B), dtype=torch.int32, device=x.device)
@@ -205,6 +218,172 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     _build.check(lib, err, "binned_scan")
     launches.count("binned_scan")
     return vals, ids
+
+
+def _bf16_round(v) -> np.ndarray:
+    """f32 → nearest bfloat16, ties to even (as ``ml_dtypes`` casts) → f32."""
+    t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    return t.to(torch.bfloat16).float().numpy()
+
+
+def _split_hi_lo(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """f32 vector → bf16-representable (hi, lo) with hi+lo ≈ v to ~2^-17."""
+    hi = _bf16_round(v)
+    lo = _bf16_round(v - hi)
+    return hi, lo
+
+
+def augment_corpus(x_lo_pad: np.ndarray, n: int, metric: str) -> np.ndarray:
+    """Fold the full distance into one product: x_aug (n_pad, d+4 for l2,
+    d+1 for ip/angular) f32, cast to the scan type by the caller. The JAX
+    package's ``augment_corpus``, bit for bit.
+
+      l2:  x_aug = [-2x | nhi | nlo | 1 | 1]  vs  q_aug = [q | 1 | 1 | qhi | qlo]
+           → score = ‖x‖² − 2q·x + ‖q‖²  (the squared distance, >= ~0)
+      ip:  x_aug = [-x | 1]                vs  q_aug = [q | C_q]
+           → score = C_q − q·x >= 0 with C_q = 1.02·‖q‖·max‖x‖ + 1
+
+    The data columns are the bf16-rounded rows (-2x is an exact exponent
+    shift) whatever the scan type, and the norms are of those rows, split
+    into bf16 (hi, lo) pairs. Padding rows (index >= n) are zero but for
+    +inf in column d, so their score is +inf and they never win a bin."""
+    n_pad, d = x_lo_pad.shape
+    xr = _bf16_round(x_lo_pad)
+    if metric == "l2":
+        nsq = (xr * xr).sum(-1)
+        nhi, nlo = _split_hi_lo(nsq)
+        aug = np.zeros((n_pad, d + 4), np.float32)
+        aug[:, :d] = -2.0 * xr
+        aug[:, d] = nhi
+        aug[:, d + 1] = nlo
+        aug[:, d + 2] = 1.0
+        aug[:, d + 3] = 1.0
+        aug[n:, :] = 0.0
+        aug[n:, d] = np.inf
+        return aug
+    aug = np.zeros((n_pad, d + 1), np.float32)
+    aug[:, :d] = -xr
+    aug[:, d] = 1.0
+    aug[n:, :] = 0.0
+    aug[n:, d] = np.inf    # C_q >= 1, so a padding score is +inf
+    return aug
+
+
+def augment_queries(q: torch.Tensor, metric: str,
+                    max_norm: float) -> torch.Tensor:
+    """The queries' side of ``augment_corpus``, on their device: q goes in
+    unrounded (the scan casts it to its type); only the norm is of the
+    bf16-rounded query, its hi part bf16 and its lo part the f32 rest."""
+    q = q.float()
+    qb = q.to(torch.bfloat16).float()
+    if metric == "l2":
+        qsq = (qb * qb).sum(1)
+        qhi = qsq.to(torch.bfloat16).float()
+        qlo = qsq - qhi
+        ones = torch.ones_like(qsq)
+        return torch.cat([q, ones[:, None], ones[:, None], qhi[:, None],
+                          qlo[:, None]], 1)
+    cq = 1.02 * torch.sqrt((qb * qb).sum(1)) * max_norm + 1.0
+    return torch.cat([q, cq[:, None]], 1)
+
+
+# The shifted kernel's element kinds and widths: a reduced width of
+# SCAN_WIDTHS plus the four augmented columns (an ip corpus, one column
+# wider than its data, pads three zero columns to the same width).
+_SHIFTED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+SHIFTED_WIDTHS = tuple(w + 4 for w in SCAN_WIDTHS)
+
+
+def _check_shifted_args(q_aug, x_aug, bin_size: int) -> None:
+    """The Pallas ``shifted_scan``'s checks, with its messages."""
+    if x_aug.dtype == torch.int8:
+        raise TypeError("the shifted scan takes a bfloat16, float16 or "
+                        "float32 corpus; int8 scans require mode='binned'")
+    if x_aug.dtype not in _SHIFTED_DTYPES:
+        raise TypeError(f"the shifted scan's corpus must be bfloat16, float16 "
+                        f"or float32, got {x_aug.dtype}")
+    if q_aug.device != x_aug.device:
+        raise ValueError("shifted scan inputs must lie on one device")
+    if q_aug.ndim != 2 or x_aug.ndim != 2:
+        raise ValueError(f"shape mismatch: q_aug {tuple(q_aug.shape)}, "
+                         f"x_aug {tuple(x_aug.shape)}")
+    if x_aug.shape[1] != q_aug.shape[1]:
+        raise ValueError(f"q_aug width {q_aug.shape[1]} != x_aug width "
+                         f"{x_aug.shape[1]} (augment mismatch)")
+    if bin_size < 1 or bin_size & (bin_size - 1):
+        raise ValueError("shifted selection needs power-of-two bin_size")
+    if x_aug.shape[0] % bin_size:
+        raise ValueError(f"corpus rows {x_aug.shape[0]} must be a multiple "
+                         f"of bin_size {bin_size}")
+
+
+def shifted_scan_plain(q_aug, x_aug, *, bin_size: int = 1024):
+    """Plain PyTorch version of ``shifted_scan`` (same contract): the keys
+    of the Pallas ``_scan_kernel_shifted``.
+
+    q is cast to the corpus type; the products run in fp32 with TF32 off
+    (exact products of bf16 and fp16 inputs), in score blocks of at most
+    2^26 entries. The key is the score's RAW IEEE bits with the in-bin row
+    in the low bits: no sign flip, so among negative scores (only exact
+    duplicate rows give them) the int order is the raw-bits order, as in
+    the Pallas kernel."""
+    _check_shifted_args(q_aug, x_aug, bin_size)
+    B = q_aug.shape[0]
+    n_bins = x_aug.shape[0] // bin_size
+    dev = x_aug.device
+    vals = torch.empty((n_bins, B), dtype=torch.float32, device=dev)
+    ids = torch.empty((n_bins, B), dtype=torch.int32, device=dev)
+    qf = q_aug.to(x_aug.dtype).float()
+    mask = bin_size - 1
+    step = max(1, (1 << 26) // (B * bin_size))
+    iota = torch.arange(bin_size, dtype=torch.int32, device=dev)
+    for b0 in range(0, n_bins, step):
+        b1 = min(n_bins, b0 + step)
+        with exact_fp32():
+            s = x_aug[b0 * bin_size:b1 * bin_size].float() @ qf.T
+        key = ((s.view(torch.int32) & ~mask).view(b1 - b0, bin_size, B)
+               | iota[None, :, None])
+        kmin = key.amin(dim=1)
+        vals[b0:b1] = (kmin & ~mask).view(torch.float32)
+        base = torch.arange(b0, b1, device=dev, dtype=torch.int32)
+        ids[b0:b1] = (kmin & mask) + base[:, None] * bin_size
+    return vals.T, ids.T
+
+
+def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024):
+    """Bin winners of the shifted-key scan, query-major: ``(vals (B,
+    n_bins) f32, ids (B, n_bins) int32)``; the values are the scores
+    quantized to 2^(log2 bin_size - 23) relative (monotone within a
+    query), the ids corpus rows.
+
+    q_aug (B, d_aug) from ``augment_queries`` (cast to the corpus type),
+    x_aug (n_pad, d_aug) bfloat16, float16 or float32 from
+    ``augment_corpus``, n_pad a multiple of the power-of-two ``bin_size``.
+    CPU tensors take ``shifted_scan_plain``; CUDA tensors launch T3 (d_aug
+    in ``SHIFTED_WIDTHS``)."""
+    if x_aug.device.type == "cpu":
+        return shifted_scan_plain(q_aug, x_aug, bin_size=bin_size)
+    _check_shifted_args(q_aug, x_aug, bin_size)
+    if x_aug.device.type != "cuda":
+        raise ValueError(f"shifted_scan runs on cuda or cpu, not "
+                         f"{x_aug.device}")
+    B, d_aug = q_aug.shape
+    if d_aug not in SHIFTED_WIDTHS:
+        raise ValueError(f"the shifted kernel takes d_aug in "
+                         f"{SHIFTED_WIDTHS}, got {d_aug}")
+    q, x = _build.aligned(q_aug.to(x_aug.dtype)), _build.aligned(x_aug)
+    n_bins = x.shape[0] // bin_size
+    vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
+    ids = torch.empty((n_bins, B), dtype=torch.int32, device=x.device)
+    lib = _shifted_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gbnns_shifted_scan(
+            q.data_ptr(), x.data_ptr(), vals.data_ptr(), ids.data_ptr(), B,
+            x.shape[0], d_aug, bin_size, _KINDS[x.dtype], stream)
+    _build.check(lib, err, "shifted_scan")
+    launches.count("shifted_scan")
+    return vals.T, ids.T
 
 
 # The gated kernel's element kinds, and the most winners it keeps a chunk.
@@ -341,9 +520,9 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
     if n_chunks > 65535:
         raise ValueError(f"the gated kernel takes at most 65,535 chunks, "
                          f"got {n_chunks}")
-    q, x = _aligned(q.to(x.dtype)), _aligned(x)
-    addvec = _aligned(addvec.float())
-    tile_mask = _aligned(tile_mask.to(torch.int32))
+    q, x = _build.aligned(q.to(x.dtype)), _build.aligned(x)
+    addvec = _build.aligned(addvec.float())
+    tile_mask = _build.aligned(tile_mask.to(torch.int32))
     vals = torch.empty((n_chunks * m, B), dtype=torch.float32,
                        device=x.device)
     ids = torch.empty((n_chunks * m, B), dtype=torch.int32, device=x.device)
@@ -465,21 +644,22 @@ class FusedScanIndex:
     device memory. ``c`` (the re-rank pool) is the recall knob.
 
     ``chunk`` only rounds the corpus up (n_pad = round_up(n, chunk)); it sets
-    the count of padding bins, as in the Pallas version.
+    the count of padding bins, as in the Pallas version. ``tq`` is the
+    Pallas version's query tile: the port's kernels tile queries their own
+    way, so it is stored and changes no result. ``mode="shifted"`` scans
+    the augmented operands of ``augment_corpus`` with ``shifted_scan`` (T3)
+    and takes an exact top-c of its winners (the Pallas merge never serves
+    that mode); it refuses int8, as the JAX index does.
     """
 
     def __init__(self, base_full, base_lo=None, *, metric: str = "l2",
                  scan_dtype="bfloat16", bin_size: int = 1024,
-                 chunk: int = 16384, packed: bool = False,
+                 chunk: int = 16384, tq: int = 1024, packed: bool = False,
                  mode: str = "binned", rerank_dtype=torch.float32,
                  device=None):
         if metric not in ("l2", "ip", "angular"):
             raise ValueError(f"unknown metric {metric!r}")
-        if mode == "shifted":
-            raise NotImplementedError(
-                "mode='shifted' needs the shifted-key scan kernel (T3), "
-                "still to be ported: see ROADMAP.md")
-        if mode != "binned":
+        if mode not in ("shifted", "binned"):
             raise ValueError(f"unknown mode {mode!r}")
         dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8,
                   "float32": torch.float32, "float16": torch.float16}
@@ -488,6 +668,10 @@ class FusedScanIndex:
             raise ValueError(f"scan_dtype must be bfloat16, float16, int8 or "
                              f"float32, got {scan_dtype!r}")
         self.quant = self.scan_dtype == torch.int8
+        if self.quant and mode == "shifted":
+            raise ValueError("int8 scan requires mode='binned'")
+        self.mode = mode
+        self.tq = tq
         if rerank_dtype in ("float32", torch.float32):
             rerank_dtype = torch.float32
         elif rerank_dtype in ("bfloat16", torch.bfloat16):
@@ -514,6 +698,26 @@ class FusedScanIndex:
         width = scan_width(d_lo)
         lo_pad = np.zeros((n_pad, width), np.float32)
         lo_pad[:n, :d_lo] = lo
+        self.d_lo = d_lo
+        if mode == "shifted":
+            # zero columns up to the kernel's width add nothing to a dot
+            # product or a norm
+            aug = augment_corpus(lo_pad, n, metric)
+            aug = np.pad(aug, ((0, 0), (0, width + 4 - aug.shape[1])))
+            self.x_aug = (torch.from_numpy(aug).to(self.scan_dtype)
+                          .to(self.device))
+            self.max_norm = float(np.sqrt((lo ** 2).sum(-1).max()))
+        else:
+            self._binned_corpus(lo, lo_pad, n)
+        # bf16 re-rank halves the candidate gather; the norms stay f32 and
+        # are taken before the cast
+        bf = torch.from_numpy(base_full).to(self.device)
+        self.base_sq = (bf * bf).sum(-1)
+        self.base_full = bf.to(rerank_dtype)
+
+    def _binned_corpus(self, lo, lo_pad, n: int) -> None:
+        """The binned scan's corpus (prescaled or int8) and addvec."""
+        metric, n_pad = self.metric, lo_pad.shape[0]
         if metric == "l2":
             add = (lo_pad ** 2).sum(-1)
             add[n:] = np.inf
@@ -535,13 +739,19 @@ class FusedScanIndex:
             # prescaled storage: -2x / -x is exact in bf16, fp16 and f32
             self.x_lo = (torch.from_numpy(self.dot_scale * lo_pad)
                          .to(self.scan_dtype).to(self.device))
-        self.d_lo = d_lo
         self.addvec = torch.from_numpy(add.astype(np.float32)).to(self.device)
-        # bf16 re-rank halves the candidate gather; the norms stay f32 and
-        # are taken before the cast
-        bf = torch.from_numpy(base_full).to(self.device)
-        self.base_sq = (bf * bf).sum(-1)
-        self.base_full = bf.to(rerank_dtype)
+
+    def shifted_queries(self, ql: torch.Tensor) -> torch.Tensor:
+        """Augmented f32 queries of the shifted mode, at the corpus's
+        width (the scan casts them to its type)."""
+        width = self.x_aug.shape[1] - 4
+        if ql.shape[1] != self.d_lo:
+            raise ValueError(f"queries have {ql.shape[1]} reduced dims, the "
+                             f"index {self.d_lo}")
+        ql = torch.nn.functional.pad(ql, (0, width - self.d_lo))
+        q_aug = augment_queries(ql, self.metric, self.max_norm)
+        return torch.nn.functional.pad(
+            q_aug, (0, self.x_aug.shape[1] - q_aug.shape[1]))
 
     def scan_queries(self, ql: torch.Tensor):
         """Queries in the scan's type and width, and the int8 dequant
@@ -568,13 +778,19 @@ class FusedScanIndex:
         ``merge``: "pallas" (kernel K2 over the bin-major winners), "exact"
         (a sort of the transposed winners), "approx" (the same exact sort:
         the TPU's approximate top-k has no counterpart here), or None:
-        "pallas" on the card and "exact" on the CPU."""
+        "pallas" on the card and "exact" on the CPU. The shifted mode
+        always takes the exact top-c, ties to the lower bin, as the JAX
+        index does."""
         if merge is None:
             merge = "pallas" if self.device.type == "cuda" else "exact"
         if merge not in ("pallas", "exact", "approx"):
             raise ValueError(f"unknown merge {merge!r}")
         ql = torch.as_tensor(queries_lo, dtype=torch.float32,
                              device=self.device)
+        if self.mode == "shifted":
+            vals, ids = shifted_scan(self.shifted_queries(ql), self.x_aug,
+                                     bin_size=self.bin_size)
+            return exact_topc(vals.T, ids.T, c)[1]
         q_scan, alpha = self.scan_queries(ql)
         vals, ids = binned_scan(q_scan, self.x_lo, self.addvec, alpha,
                                 bin_size=self.bin_size, packed=self.packed)
@@ -629,6 +845,17 @@ def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,
     return {"max_abs_err": max_err, "bad_values": bad_vals,
             "id_mismatches": int(miss.shape[0]), "near_ties": near_ties,
             "ok": bad_vals == 0 and id_bad == 0}
+
+
+def shifted_agreement(got, ref, q_aug, x_aug, *, bin_size: int,
+                      rtol: float = 1e-5) -> dict:
+    """``scan_agreement`` for the shifted scan's query-major winners: the
+    score is the whole dot product of the augmented operands (no addvec),
+    keyed as a packed score of ``bin_size``."""
+    zero = torch.zeros(x_aug.shape[0], device=x_aug.device)
+    return scan_agreement((got[0].T, got[1].T), (ref[0].T, ref[1].T),
+                          q_aug.to(x_aug.dtype), x_aug, zero,
+                          bin_size=bin_size, packed=True, rtol=rtol)
 
 
 def gated_agreement(got, ref, q, x, addvec, *, fine: int, sub: int,

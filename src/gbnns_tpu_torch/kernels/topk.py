@@ -4,6 +4,13 @@ The corpus is swept in chunks; each chunk's distances are one fp32 matrix
 product, reduced at once to a per-chunk top-k and merged into a running
 top-k, so peak memory is O(nq * chunk), never O(nq * n). Selection is exact
 (``torch.topk``); the TPU's approximate top-k has no counterpart here.
+
+The sweeps take the JAX package's ``exact``, ``recall_target`` and
+``precision`` keywords with the same names and order. Selection stays exact
+whatever ``exact`` and ``recall_target`` say (``exact=False`` asked the TPU
+for ``approx_max_k``), and the products always run in full fp32 with TF32
+off, which is what JAX's ``precision="highest"`` gives; ``precision`` is
+accepted and changes nothing.
 """
 
 from __future__ import annotations
@@ -60,12 +67,15 @@ def _smallest(d: torch.Tensor, i: torch.Tensor, k: int):
 
 
 def knn_chunked(q: torch.Tensor, x: torch.Tensor, k: int, *,
-                metric: str = "l2", chunk: int = 65536):
+                metric: str = "l2", chunk: int = 65536, exact: bool = True,
+                recall_target: float = 0.99, precision: str | None = None):
     """kNN of ``q (nq, d)`` against ``x (n, d)`` on their device:
     ``(dists (nq, k) f32, ids (nq, k) int32)`` ascending by distance, ties
     to the lower id. Both are taken in full fp32 whatever their stored type.
     Rows with a tie across a chunk's k-th value are selected again on 8-byte
-    keys (``smallest_k``)."""
+    keys (``smallest_k``). ``exact``, ``recall_target`` and ``precision``
+    are JAX's keywords; the result is exact whatever they say (module
+    docstring)."""
     nq = q.shape[0]
     n = x.shape[0]
     if k > n:
@@ -84,19 +94,24 @@ def knn_chunked(q: torch.Tensor, x: torch.Tensor, k: int, *,
 
 
 def knn_fused(q: torch.Tensor, x: torch.Tensor, k: int, *,
-              metric: str = "l2", chunk: int = 65536, q_chunk: int = 8192):
+              metric: str = "l2", chunk: int = 65536, q_chunk: int = 8192,
+              exact: bool = True, recall_target: float = 0.99,
+              precision: str | None = None):
     """kNN of a large query block ``q (nq, d)`` against ``x (n, d)``: the
     corpus sweep of ``knn_chunked`` over query chunks of ``q_chunk``, so
     scores stay O(q_chunk * chunk). The exact backend of the graph build.
     Returns ``(dists (nq, k) f32, ids (nq, k) int32)`` on their device."""
     outs = [knn_chunked(q[off:off + q_chunk], x, k, metric=metric,
-                        chunk=chunk)
+                        chunk=chunk, exact=exact, recall_target=recall_target,
+                        precision=precision)
             for off in range(0, q.shape[0], q_chunk)]
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def knn(q, x, k: int, *, metric: str = "l2", chunk: int = 65536,
-        q_chunk: int | None = None, device=None):
+        q_chunk: int | None = None, exact: bool = True,
+        recall_target: float = 0.99, precision: str | None = None,
+        device=None):
     """Host-level wrapper: accepts numpy arrays or tensors, moves them to
     ``device`` (the card unless the caller asks for the CPU), and tiles the
     query axis by ``q_chunk`` so large query sets stream through fixed
@@ -107,4 +122,5 @@ def knn(q, x, k: int, *, metric: str = "l2", chunk: int = 65536,
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                         device=dev).float()
     return knn_fused(q, x, k, metric=metric, chunk=chunk,
-                     q_chunk=q_chunk or max(1, q.shape[0]))
+                     q_chunk=q_chunk or max(1, q.shape[0]), exact=exact,
+                     recall_target=recall_target, precision=precision)

@@ -128,7 +128,8 @@ def test_sources_include_only_cuda_headers_and_common():
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(
         _build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {"scan_topk.cu", "gated_topm.cu",
-                                         "gather.cu", "common.cuh"}
+                                         "gather.cu", "shifted_scan.cu",
+                                         "distance_topk.cu", "common.cuh"}
     for src in sources:
         for line in src.read_text().splitlines():
             if line.startswith("#include"):

@@ -1,8 +1,8 @@
 """chip_smoke.py's phases rehearsed on the CPU at a small size: the corpus
 of n = 20,000 with its cached ground truth and projection, the fused service
-in bf16 and int8 over submit() and HTTP, the gated scan's probes sweep, the
-graph build, the walker checks, the graph_pallas service, and a teardown
-that leaves no thread.
+in bf16 and int8 over submit() and HTTP, the shifted-key index, the gated
+scan's probes sweep, the graph build, the exact fused kNN, the walker
+checks, the graph_pallas service, and a teardown that leaves no thread.
 (The kernel phases and the launch and recall checks need the card.)"""
 
 import importlib.util
@@ -40,11 +40,19 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
         assert f"gated probes={probes} c=32: R@1=" in out
     assert "GatedScanIndex: " in out and "'n_chunks': 2" in out
     assert "fused graph (20000, 32)" in out and "launches {" in out
+    assert "the kernel takes d_aug = 36" in out
+    assert "fused shifted c=12: R@1=" in out
+    assert "knn_topk of 8192 x 20000 x 32, k=33" in out
+    assert "T6 knn_topk vs knn_chunked (8192 queries):" in out
+    for label in ("l2", "ip", "bf16"):
+        assert f"T6 knn_topk[{label}] vs plain (1024 queries):" in out
+    assert out.count("'ok': True") == 4
     assert set(records) == {"binned_scan[bfloat16]", "binned_scan[int8]",
                             "binned_scan[bfloat16,packed]",
                             "merge_topc[bfloat16,c=12]",
                             "merge_topc[int8,c=16]", "merge_topc[build,c=33]",
-                            "row_gather", "gated_topm"}
+                            "row_gather", "gated_topm", "shifted_scan",
+                            "knn_topk"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
     assert set(threading.enumerate()) <= before
 
@@ -149,6 +157,62 @@ def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):
                         "bound_by", "library_ms"}
 
 
+def test_shifted_kernel_check_runs_its_kernel(chip_smoke, monkeypatch,
+                                             capsys):
+    """The card-only check of T3 against its plain version (bf16 at the
+    index's shape, fp16 and f32 on a slice) and its record, on the CPU with
+    the timers replaced by a call that only runs each function and no
+    device to synchronize."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    for timer in ("time_ms", "median_ms"):
+        monkeypatch.setattr(chip_smoke, timer,
+                            lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(3000, 48)).astype(np.float32)
+    lo = base[:, :32].copy()
+    idx = st.FusedScanIndex(base, lo, mode="shifted", chunk=1024,
+                            device="cpu")
+    ql = torch.from_numpy(rng.normal(size=(100, 32)).astype(np.float32))
+    records = {"shifted_scan": {"launches": 1}}
+    chip_smoke.shifted_kernel_check(st, idx, ql, base, lo,
+                                    torch.device("cpu"), records)
+    out = capsys.readouterr().out
+    for label in ("bfloat16", "float16", "float32"):
+        assert f"T3 shifted_scan[{label}] vs plain" in out
+    assert out.count("'ok': True") == 3
+    rec = records["shifted_scan"]
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+    assert rec["library_ms"] == 1.0 and rec["launches"] == 1
+
+
+def test_knn_record_runs_its_kernel(chip_smoke, monkeypatch, capsys):
+    """The card-only record of T6, on the CPU with the timer replaced by a
+    call that only runs each function."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(3000, 32)).astype(np.float32))
+    records = {"knn_topk": {"launches": 1}}
+    chip_smoke.knn_record(x[:200], x, 2e-6, records)
+    out = capsys.readouterr().out
+    assert "yardstick knn_chunked 1.000 ms" in out
+    rec = records["knn_topk"]
+    assert rec["launches"] == 1 and rec["max_abs_err"] == 2e-6
+    assert rec["library_ms"] is None and rec["yardstick_ms"] == 1.0
+    assert rec["bound_ms"] > 0 and rec["matmul_ms"] == 1.0
+    assert set(rec) >= {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+
+
 def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
     """A thread alive before the run (another test's daemon, say) is not the
     run's to stop; a thread the run leaves behind fails it."""
@@ -158,7 +222,9 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
     monkeypatch.setattr(chip_smoke, "load_data", lambda *a: (None,) * 5)
     monkeypatch.setattr(chip_smoke, "serve_fused",
                         lambda *a, **k: {"r10": 1.0})
+    monkeypatch.setattr(chip_smoke, "shifted_fused", lambda *a, **k: {})
     monkeypatch.setattr(chip_smoke, "gated_scan", lambda *a, **k: [])
+    monkeypatch.setattr(chip_smoke, "exact_knn", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "graph_build",
                         lambda *a, **k: (None, None, None))
     monkeypatch.setattr(chip_smoke, "walker_checks", lambda *a, **k: None)

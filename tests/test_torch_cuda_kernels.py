@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 binned_scan, K2 merge_topc, K3 row_gather,
-T4 gated_topm) against their plain PyTorch versions on the same card inputs, and the walks
-and indexes built on them against the same on the CPU.
+T3 shifted_scan, T4 gated_topm, T6 knn_topk) against their plain PyTorch
+versions on the same card inputs, and the walks and indexes built on them
+against the same on the CPU.
 
 These need an NVIDIA GPU and nvcc, so they carry the ``cuda`` marker and skip
 without a card. On a machine with one (which has no JAX), run them with
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from gbnns_tpu_torch.kernels import distance_topk as dt
 from gbnns_tpu_torch.kernels import gather
 from gbnns_tpu_torch.kernels import scan_topk as st
 
@@ -292,8 +294,11 @@ def test_built_library_is_reused(dev):
 
     st._library()
     st._gated_library()
+    st._shifted_library()
     gather._library()
-    for name in ("scan_topk", "gated_topm", "gather"):
+    dt._library()
+    for name in ("scan_topk", "gated_topm", "gather", "shifted_scan",
+                 "distance_topk"):
         path = _build.library_path(name)
         stamp = path.stat().st_mtime_ns
         _build.build([name])             # already built: no nvcc
@@ -400,3 +405,153 @@ def test_gated_index_on_the_card(dev, monkeypatch):
     monkeypatch.setattr(gated, "gated_topm_scan", st.gated_topm_scan_plain)
     plain = idx.search(query, k=10, probes=4)[0].cpu().numpy()
     assert (plain == got[4]).all(axis=1).mean() >= 0.99
+
+
+def _shifted_inputs(n_pad, n, d, B, metric, dtype, seed=0):
+    """Augmented operands of a corpus of n rows padded to n_pad, at the
+    kernel's width d + 4 (an ip corpus padded with zero columns)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_pad, d), np.float32)
+    x[:n] = rng.normal(size=(n, d)) * 2.0 - 0.5
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    aug = st.augment_corpus(x, n, metric)
+    aug = np.pad(aug, ((0, 0), (0, d + 4 - aug.shape[1])))
+    max_norm = float(np.sqrt((x[:n] ** 2).sum(-1).max()))
+    q_aug = st.augment_queries(torch.from_numpy(q), metric, max_norm)
+    q_aug = torch.nn.functional.pad(q_aug, (0, d + 4 - q_aug.shape[1]))
+    return q_aug, torch.from_numpy(aug).to(dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("bin_size", [8, 1024])
+def test_shifted_scan_kernel_matches_plain(dev, d, metric, dtype, bin_size):
+    q, x = (t.to(dev) for t in _shifted_inputs(8192, 8000, d, 300, metric,
+                                               dtype))
+    before = st.launches["shifted_scan"]
+    got = st.shifted_scan(q, x, bin_size=bin_size)
+    torch.cuda.synchronize()
+    assert st.launches["shifted_scan"] == before + 1
+    ref = st.shifted_scan_plain(q, x, bin_size=bin_size)
+    assert got[0].shape == ref[0].shape == (300, 8192 // bin_size)
+    rep = st.shifted_agreement(got, ref, q, x, bin_size=bin_size)
+    assert rep["ok"], rep
+    # padding rows never win a bin that holds a real row; a bin of padding
+    # rows only gives +inf
+    real = -(-8000 // bin_size)
+    assert (got[1][:, :real] < 8000).all()
+    assert torch.isinf(got[0][:, real:]).all()
+
+
+def test_shifted_scan_kernel_refuses_what_it_cannot_take(dev):
+    q, x = (t.to(dev) for t in _shifted_inputs(2048, 2048, 32, 64, "l2",
+                                               torch.bfloat16))
+    before = st.launches["shifted_scan"]
+    with pytest.raises(TypeError, match="int8"):
+        st.shifted_scan(q, x.to(torch.int8), bin_size=64)
+    with pytest.raises(ValueError, match="power-of-two"):
+        st.shifted_scan(q, x, bin_size=24)
+    with pytest.raises(ValueError, match="d_aug in"):
+        st.shifted_scan(q[:, :33], x[:, :33], bin_size=64)
+    with pytest.raises(ValueError, match="augment mismatch"):
+        st.shifted_scan(q[:, :20], x, bin_size=64)
+    assert st.launches["shifted_scan"] == before
+
+
+@pytest.mark.parametrize("metric", ["l2", "angular"])
+@pytest.mark.parametrize("scan_dtype", ["bfloat16", "float16", "float32"])
+def test_shifted_index_card_matches_cpu(dev, metric, scan_dtype):
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(20000, 48)).astype(np.float32)
+    query = rng.normal(size=(300, 48)).astype(np.float32)
+    if metric == "angular":
+        base /= np.linalg.norm(base, axis=1, keepdims=True)
+        query /= np.linalg.norm(query, axis=1, keepdims=True)
+    kw = dict(metric=metric, scan_dtype=scan_dtype, chunk=1024,
+              mode="shifted")
+    gpu = st.FusedScanIndex(base, base[:, :24].copy(), device="cuda", **kw)
+    cpu = st.FusedScanIndex(base, base[:, :24].copy(), device="cpu", **kw)
+    assert gpu.x_aug.shape[1] == 36
+    st.reset_launches()
+    gi, gd = gpu.search(query, query[:, :24], k=10, c=32)
+    torch.cuda.synchronize()
+    assert st.launches["shifted_scan"] == 1
+    assert st.launches["merge_topc"] == 0 and st.launches["binned_scan"] == 0
+    ci, cd = cpu.search(query, query[:, :24], k=10, c=32)
+    assert (gi.cpu() == ci).all(dim=1).float().mean().item() >= 0.99
+    np.testing.assert_allclose(gd.cpu().numpy(), cd.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+# (nq, n, d, k): the CPU tests' shapes, the build's k = 33 at d = 32 with
+# several corpus splits, and k = 128 at d = 128
+KNN_SHAPES = [(100, 700, 32, 10), (64, 256, 16, 33), (80, 500, 24, 8),
+              (10, 100, 8, 50), (3000, 40000, 32, 33), (500, 9000, 128, 128)]
+
+
+@pytest.mark.parametrize("shape", KNN_SHAPES,
+                         ids=["-".join(map(str, s)) for s in KNN_SHAPES])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_knn_topk_kernel_matches_plain(dev, shape, metric, dtype):
+    nq, n, d, k = shape
+    rng = np.random.default_rng(nq + n)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    q, x = q.to(dev, dtype), x.to(dev, dtype)
+    before = dt.launches["knn_topk"]
+    got = dt.knn_topk(q, x, k, metric=metric)
+    torch.cuda.synchronize()
+    assert dt.launches["knn_topk"] == before + 1
+    ref = dt.knn_topk_plain(q, x, k, metric=metric)
+    assert got[0].shape == got[1].shape == (nq, k)
+    rep = dt.knn_agreement(got, ref, q, x, metric=metric)
+    assert rep["ok"], rep
+    assert (got[0].diff(dim=1) >= 0).all()
+    assert ((got[1] >= 0) & (got[1] < n)).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_knn_topk_kernel_ties_go_to_the_lower_id(dev, metric):
+    """Rows stored four times at shuffled positions, across several corpus
+    splits, and queries that are corpus rows: ids exactly the plain
+    version's."""
+    rng = np.random.default_rng(12)
+    rows = rng.normal(size=(3000, 16)).astype(np.float32)
+    x = np.tile(rows, (4, 1))[rng.permutation(12000)]
+    q = np.concatenate([x[:200], rng.normal(size=(56, 16)).astype(np.float32)])
+    q, x = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    got = dt.knn_topk(q, x, 9, metric=metric)
+    ref = dt.knn_topk_plain(q, x, 9, metric=metric)
+    assert torch.equal(got[1], ref[1])
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_knn_topk_padding_is_never_selected(dev):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((1280, 8)).astype(np.float32))
+    x[1000:] = q[0]
+    got = dt.knn_topk(q.to(dev), x.to(dev), 50, n_valid=1000)
+    ref = dt.knn_topk_plain(q, x, 50, n_valid=1000)
+    assert (got[1] < 1000).all()
+    assert dt.knn_agreement((got[0].cpu(), got[1].cpu()), ref, q, x)["ok"]
+
+
+def test_knn_topk_kernel_refuses_what_it_cannot_take(dev):
+    q = torch.zeros(16, 32, device=dev)
+    x = torch.zeros(500, 32, device=dev)
+    before = dt.launches["knn_topk"]
+    with pytest.raises(ValueError, match="k <= 128"):
+        dt.knn_topk(q, x, 129)
+    with pytest.raises(ValueError, match="d <= 128"):
+        dt.knn_topk(torch.zeros(16, 130, device=dev),
+                    torch.zeros(500, 130, device=dev), 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dt.knn_topk(q.to(torch.int8), x.to(torch.int8), 5)
+    with pytest.raises(ValueError, match="k=501 > n=500"):
+        dt.knn_topk(q, x, 501)
+    assert dt.launches["knn_topk"] == before

@@ -4,10 +4,15 @@
   kNN, ground truth, the flat index, the centroid entries);
 * k-means draws its sample and its start as the JAX package does, so one
   seed gives the same centroids;
-* the fused scan takes float16, as the JAX one does.
+* the fused scan takes float16, as the JAX one does;
+* the port's entry points take the JAX package's keywords (``tq``;
+  ``exact``, ``recall_target``, ``dtype``, ``precision``), so code written
+  for the JAX package runs on the port.
 
 Inputs come from numpy with a seed; JAX runs on the CPU (the Pallas scan in
 interpret mode)."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,16 +20,18 @@ import pytest
 import torch
 
 from gbnns_tpu.build import kmeans as jax_km
+from gbnns_tpu.build import knn_graph as jax_kg
 from gbnns_tpu.eval.recall import exact_ground_truth as jax_gt
 from gbnns_tpu.kernels.scan_topk_pallas import FusedScanIndex as JaxFused
 from gbnns_tpu.kernels.topk import knn as jax_knn
 from gbnns_tpu.search.entries import CentroidEntries as JaxEntries
 from gbnns_tpu.search.flat import FlatIndex as JaxFlat
 from gbnns_tpu_torch.build import kmeans as km
+from gbnns_tpu_torch.build import knn_graph as kg
 from gbnns_tpu_torch.eval.recall import exact_ground_truth, recall_at_k
 from gbnns_tpu_torch.kernels import scan_topk as st
 from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
-from gbnns_tpu_torch.kernels.topk import knn, smallest_k
+from gbnns_tpu_torch.kernels.topk import knn, knn_chunked, knn_fused, smallest_k
 from gbnns_tpu_torch.search.entries import entries_from_jax
 from gbnns_tpu_torch.search.flat import FlatIndex
 
@@ -142,3 +149,118 @@ def test_float16_scan_plain_is_exact_products():
     np.testing.assert_array_equal(ids.numpy() % 256, s.argmin(1).numpy())
     np.testing.assert_allclose(vals.numpy(), s.amin(1).numpy(), rtol=1e-6)
 
+
+
+def _pairs():
+    """Each exported JAX entry point beside the port's."""
+    import gbnns_tpu.kernels.topk as jtopk
+    import gbnns_tpu.search.gated as jgated
+    import gbnns_tpu.search.graph_index as jgraph
+    import gbnns_tpu.serve as jserve
+    import gbnns_tpu_torch.kernels.topk as ttopk
+    import gbnns_tpu_torch.search.gated as tgated
+    import gbnns_tpu_torch.search.graph_index as tgraph
+    import gbnns_tpu_torch.serve as tserve
+
+    return {
+        "FusedScanIndex": (JaxFused.__init__, FusedScanIndex.__init__),
+        "build_knn_graph": (jax_kg.build_knn_graph, kg.build_knn_graph),
+        "knn_chunked": (jtopk.knn_chunked, ttopk.knn_chunked),
+        "knn_fused": (jtopk.knn_fused, ttopk.knn_fused),
+        "knn": (jtopk.knn, ttopk.knn),
+        "FlatIndex": (JaxFlat.__init__, FlatIndex.__init__),
+        "GatedScanIndex": (jgated.GatedScanIndex.__init__,
+                           tgated.GatedScanIndex.__init__),
+        "GraphIndex.build": (jgraph.GraphIndex.build, tgraph.GraphIndex.build),
+        "SearchService": (jserve.SearchService.__init__,
+                          tserve.SearchService.__init__),
+        "CentroidEntries.build": (JaxEntries.build,
+                                  km_entries().build),
+    }
+
+
+def km_entries():
+    from gbnns_tpu_torch.search.entries import CentroidEntries
+    return CentroidEntries
+
+
+@pytest.mark.parametrize("name", ["FusedScanIndex", "build_knn_graph",
+                                  "knn_chunked", "knn_fused", "knn",
+                                  "FlatIndex", "GatedScanIndex",
+                                  "GraphIndex.build", "SearchService",
+                                  "CentroidEntries.build"])
+def test_port_takes_every_jax_keyword_in_its_order(name):
+    """Every parameter of the JAX entry point is a parameter of the port's,
+    in the same order; the port may add its own (``device``, ``stats``)."""
+    ref, mine = _pairs()[name]
+    want = [p for p in inspect.signature(ref).parameters
+            if p not in ("interpret",)]
+    have = list(inspect.signature(mine).parameters)
+    missing = [p for p in want if p not in have]
+    assert not missing, f"{name} lacks {missing}"
+    assert [p for p in have if p in want] == want
+
+
+def test_fused_tq_changes_no_result(fixture_data):
+    base, query = fixture_data
+    a = FusedScanIndex(base, chunk=1024, device="cpu")
+    b = FusedScanIndex(base, chunk=1024, tq=64, device="cpu")
+    assert b.tq == 64 and a.tq == 1024
+    ia, da = a.search(query, k=10, c=16)
+    ib, db = b.search(query, k=10, c=16)
+    assert torch.equal(ia, ib) and torch.equal(da, db)
+
+
+@pytest.fixture(scope="module")
+def graph_corpus():
+    rng = np.random.default_rng(13)
+    centers = rng.normal(size=(12, 16)).astype(np.float32) * 3
+    return (centers[rng.integers(0, 12, 1500)]
+            + rng.normal(size=(1500, 16)).astype(np.float32))
+
+
+def test_knn_graph_approx_keywords_stay_exact(graph_corpus):
+    kw = dict(node_chunk=512, chunk=700, device="cpu")
+    exact = kg.build_knn_graph(graph_corpus, 10, **kw)
+    approx = kg.build_knn_graph(graph_corpus, 10, exact=False,
+                                recall_target=0.9, precision="highest", **kw)
+    np.testing.assert_array_equal(approx, exact)
+
+
+def test_knn_graph_bf16_matches_jax(graph_corpus):
+    """``dtype=bfloat16``: the graph of the bf16-rounded vectors with fp32
+    sums, as JAX's; rows differ only where two candidates' exact distances
+    (of the rounded vectors) tie within 1e-5 of the largest."""
+    kw = dict(node_chunk=512, chunk=700, connect=False, reverse_frac=0.0)
+    ref = jax_kg.build_knn_graph(graph_corpus, 10, dtype=jnp.bfloat16, **kw)
+    for dtype in (torch.bfloat16, "bfloat16", jnp.bfloat16):
+        mine = kg.build_knn_graph(graph_corpus, 10, dtype=dtype,
+                                  device="cpu", **kw)
+        xr = torch.from_numpy(graph_corpus).to(torch.bfloat16).double()
+        miss = np.nonzero(mine != ref)
+        rows = torch.from_numpy(miss[0])
+        d_mine = ((xr[rows] - xr[torch.from_numpy(mine[miss])]) ** 2).sum(-1)
+        d_ref = ((xr[rows] - xr[torch.from_numpy(ref[miss])]) ** 2).sum(-1)
+        scale = ((xr[:64, None] - xr[None, :]) ** 2).sum(-1).max()
+        assert ((d_mine - d_ref).abs() <= 1e-5 * scale).all()
+        assert (mine == ref).all(axis=1).mean() >= 0.95
+    # the bf16 graph is another graph than the f32 one here
+    f32 = kg.build_knn_graph(graph_corpus, 10, device="cpu", **kw)
+    assert not np.array_equal(mine, f32)
+    with pytest.raises(ValueError, match="float type"):
+        kg.build_knn_graph(graph_corpus, 10, dtype=torch.int8, device="cpu")
+
+
+def test_knn_chunked_approx_keywords_stay_exact(duplicated):
+    base, query = duplicated
+    q, x = torch.from_numpy(query), torch.from_numpy(base)
+    ref = knn_chunked(q, x, 10, chunk=5000)
+    for kw in (dict(exact=False), dict(exact=False, recall_target=0.9),
+               dict(precision="default")):
+        got = knn_chunked(q, x, 10, chunk=5000, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    got = knn_fused(q, x, 10, chunk=5000, q_chunk=100, exact=False)
+    assert torch.equal(got[1], ref[1])
+    got = knn(query, base, 10, chunk=5000, exact=False, recall_target=0.5,
+              precision="high", device="cpu")
+    assert torch.equal(got[1], ref[1])

@@ -116,8 +116,10 @@ def test_float32_and_width_200_are_taken():
 
 def test_rejected_options():
     x = np.zeros((64, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedScanIndex(x, mode="shifted", device="cpu")
+    with pytest.raises(ValueError, match="int8 scan requires mode='binned'"):
+        FusedScanIndex(x, mode="shifted", scan_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        FusedScanIndex(x, mode="ring", device="cpu")
     idx = FusedScanIndex(x, device="cpu")
     with pytest.raises(ValueError):
         idx.candidates(np.zeros((2, 8), np.float32), merge="fast")

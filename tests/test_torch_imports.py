@@ -30,6 +30,11 @@ def _env():
     return env
 
 
+def test_every_kernel_module_is_checked():
+    for name in ("scan_topk", "distance_topk", "gather", "topk", "_build"):
+        assert f"gbnns_tpu_torch.kernels.{name}" in MODULES
+
+
 def test_importing_every_port_module_pulls_in_no_forbidden_package():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -69,6 +74,11 @@ def _small():
 def _ctor_fused(base):
     from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
     return FusedScanIndex(base)
+
+
+def _ctor_shifted(base):
+    from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
+    return FusedScanIndex(base, mode="shifted")
 
 
 def _ctor_flat(base):
@@ -134,7 +144,8 @@ def _ctor_graph_services(base):
     raise RuntimeError("no CUDA device: both graph engines refused")
 
 
-@pytest.mark.parametrize("ctor", [_ctor_fused, _ctor_flat, _ctor_service,
+@pytest.mark.parametrize("ctor", [_ctor_fused, _ctor_shifted, _ctor_flat,
+                                  _ctor_service,
                                   _ctor_knn, _ctor_projection,
                                   _ctor_graph_build, _ctor_kmeans,
                                   _ctor_entries, _ctor_payload,
@@ -152,6 +163,14 @@ def test_cpu_runs_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_knn_topk_is_exported():
+    from gbnns_tpu_torch import kernels
+    from gbnns_tpu_torch.kernels import distance_topk
+
+    assert kernels.knn_topk is distance_topk.knn_topk
+    assert "knn_topk" in kernels.__all__
 
 
 def test_gated_index_is_exported_lazily():
