@@ -17,25 +17,29 @@ each printing its wall time:
    ground truth on the first 1,024 queries;
 3. each scan kernel (K1 binned_scan in bf16, int8, f32 and fp16, and at a
    reduced width of 160; K2 merge_topc) against its plain PyTorch version
-   on the serving shapes, with its time, the plain version's, one PyTorch
-   library call's and the least time the card could take (bound); the f32
-   and fp16 kinds, on no engine of the service, then answer all queries
-   through FusedScanIndex.search, with their launch counts and R@10;
+   on the serving shapes, on the route scan_cores gives it (tensor cores
+   for bf16, fp16 and int8 at d = 32; CUDA cores for f32 and d = 160),
+   with its time, the CUDA-core kernel's on the same inputs (the only
+   route before the tensor-core redesign), the plain version's, one
+   PyTorch library call's and the least time the card could take (bound); the f32 and fp16 kinds, on no engine of the
+   service, then answer all queries through FusedScanIndex.search, with
+   their launch counts (by route as well) and R@10;
 4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
    (c = 16): requests through submit() and HTTP /search, /search_raw on an
    ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
    QPS (median of ten requests), the recall run with the launch counts set
-   to 0 before and read after; R@10 must lie within 0.005 of the JAX
-   reference's rows on these inputs;
+   to 0 before and read after, every K1 launch on the tensor cores; R@10
+   must lie within 0.005 of the JAX reference's rows on these inputs;
 5. the shifted scan: FusedScanIndex(mode="shifted", bf16) with its build
    seconds and the width T3 takes; all queries at c = 12 with the launch
-   counts set to 0 before and read after (one T3 launch, no K2), R@10
-   within 0.005 of this run's binned bf16 R@10, and the median of ten
-   searches; T3 against its plain version at the serving shape (values
-   within SCAN_RTOL plus one key quantum, ids equal except at counted
-   near-ties) and, at B = 2,048, in fp16 and f32; its record: T3 ms
-   (median of five), bound, plain ms and a bf16 torch.matmul of the same
-   augmented operands;
+   counts set to 0 before and read after (one T3 launch, on the tensor
+   cores, no K2), R@10 within 0.005 of this run's binned bf16 R@10, and
+   the median of ten searches; T3 against its plain version at the
+   serving shape (values within SCAN_RTOL plus one key quantum, ids equal
+   except at counted near-ties) and, at B = 2,048, in fp16 and f32; its
+   record: T3 ms (median of five), the CUDA-core kernel's on the same
+   inputs, bound, plain ms and a bf16 torch.matmul of the same augmented
+   operands;
 6. the gated scan: GatedScanIndex at its defaults (fine 32, m 16, sub
    1024, chunk 16384, tq 512, seed 0) with its build seconds (k-means,
    assignment, packing, upload) and stats; T4 gated_topm against its plain
@@ -51,7 +55,7 @@ each printing its wall time:
 7. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
-   read after; K1 in its packed form and K2 at c = K + 1 against their
+   read after, every K1 launch on the tensor cores; K1 in its packed form and K2 at c = K + 1 against their
    plain versions on one 8,192-node chunk of the build's own operands;
    every node reachable from the walker's entries; edge overlap with the
    exact build's graph on 1,024 sampled nodes at least the JAX package's
@@ -247,34 +251,68 @@ def load_data(device, n: int, nq: int, proj_file: str):
     return base, query, base_lo, gt, trained
 
 
+def route_counts(st, kernel: str) -> dict:
+    """``kernel``'s launches by route since the counts were last reset."""
+    return {c: st.launches_by_cores[f"{kernel}:{c}"]
+            for c in ("tensor", "cuda")}
+
+
+def main_path_route(records, name: str, kernel: str, cores: str,
+                    counts: dict, device, what: str) -> None:
+    """Record the route ``cores`` of a main path's K1 or T3 and its launches
+    by route (``counts``, read after the run); on the card every launch
+    must have taken the tensor cores."""
+    records.setdefault(name, {}).update(cores=cores,
+                                        launches_by_cores=counts)
+    say(f"{what}: {kernel} routed to the {cores} cores, launches by route "
+        f"{counts}")
+    if device.type == "cuda":
+        check(cores == "tensor" and counts["cuda"] == 0
+              and counts["tensor"] > 0,
+              f"{what}: a {kernel} launch took the CUDA cores: {counts}")
+
+
 def _scan_check(st, args, kw: dict, label: str, plain_iters: int = 2):
     """K1 on ``args = (q, x, addvec, alpha)`` and options ``kw`` against its
-    plain version; returns the scan's outputs and its record (times, bound;
-    the library yardstick is filled by the caller)."""
+    plain version, on the route ``scan_cores`` gives it (the launch is
+    counted there); returns the scan's outputs and its record (times,
+    bound, and ``earlier_ms``: the CUDA-core kernel on the same inputs,
+    the only route before the tensor-core redesign; the library yardstick
+    is filled by the caller)."""
     import torch
 
+    q_scan, x, _, alpha = args
+    B, d = q_scan.shape
+    cores = st.scan_cores(x.dtype, d, kw["bin_size"])
+    before = route_counts(st, "binned_scan")[cores]
     got = st.binned_scan(*args, **kw)
     ref = st.binned_scan_plain(*args, **kw)
     torch.cuda.synchronize()
+    if x.device.type == "cuda":
+        check(route_counts(st, "binned_scan")[cores] == before + 1,
+              f"K1 {label} did not launch on the {cores} cores")
     rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
-    say(f"K1 binned_scan[{label}] vs plain: {rep}")
+    say(f"K1 binned_scan[{label}] vs plain ({cores} cores): {rep}")
     check(rep["ok"], f"K1 {label} disagrees with its plain version")
-    q_scan, x, _, alpha = args
-    B, d = q_scan.shape
     n_pad = x.shape[0]
     n_bins = n_pad // kw["bin_size"]
     ms = time_ms(lambda: st.binned_scan(*args, **kw))
+    earlier_ms = (ms if cores == "cuda" else
+                  time_ms(lambda: st.binned_scan(*args, **kw, cores="cuda")))
     plain_ms = time_ms(lambda: st.binned_scan_plain(*args, **kw), plain_iters)
     el = q_scan.element_size()
     n_bytes = (B * d * el + n_pad * d * el + n_pad * 4
                + (B * 4 if alpha is not None else 0) + n_bins * B * 8)
     dtype = str(x.dtype).removeprefix("torch.")
     b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
-    rec = dict(name=f"binned_scan[{label}]", route="cuda", source=SCAN_SOURCE,
+    name = f"binned_scan[{label}]"
+    rec = dict(name=name, route="cuda", source=SCAN_SOURCE,
                replaces=REPLACES["binned_scan"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    say(f"K1 [{label}] B={B} n_pad={n_pad} d={d}: {ms:.3f} ms, plain "
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, cores=cores,
+               earlier_ms=earlier_ms)
+    say(f"K1 [{label}] B={B} n_pad={n_pad} d={d} on the {cores} cores: "
+        f"{ms:.3f} ms (CUDA-core kernel {earlier_ms:.3f} ms), plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return got, rec
 
@@ -299,10 +337,12 @@ def _merge_check(st, vals, ids, c: int, label: str) -> dict:
     b_ms, b_by = bound_ms(R * B * 8 + B * c * 8, 0.0, "bfloat16")
     say(f"K2 [{label}] R={R} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"topk {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
+    # K2 runs on the CUDA cores and was not redesigned
     return dict(name=f"merge_topc[{label}]", route="cuda", source=SCAN_SOURCE,
                 replaces=REPLACES["merge_topc"], launches=None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, cores="cuda",
+                earlier_ms=None)
 
 
 def _index_args(idx, qlo):
@@ -346,10 +386,14 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
             st.reset_launches()
             ids = idx.search(qf, qlo, k=10, c=c)[0].cpu().numpy()
             rec["launches"] = st.launches["binned_scan"]
+            rec["launches_by_cores"] = route_counts(st, "binned_scan")
             r10 = recall_at_k(ids, gt, 10)
             say(f"FusedScanIndex({dtype}).search, c={c}: R@10={r10:.4f}, "
-                f"launches binned_scan {rec['launches']}")
+                f"launches binned_scan {rec['launches']}, by route "
+                f"{rec['launches_by_cores']}")
             check(rec["launches"] > 0, f"the {dtype} search launched no K1")
+            check(rec["launches_by_cores"][rec["cores"]] == rec["launches"],
+                  f"the {dtype} search left its route {rec['cores']}")
             if targets:
                 check(r10 >= REFERENCE["bfloat16"]["r10"] - R10_TOL,
                       f"the {dtype} scan's R@10 {r10:.4f} falls below "
@@ -508,6 +552,8 @@ def _main_path(svc, label: str, query, gt, counters: dict,
     first_s = time.perf_counter() - t0
     counts = {name: module.launches[name]
               for module, names in counters.items() for name in names}
+    by_cores = {k: v for module in counters
+                for k, v in getattr(module, "launches_by_cores", {}).items()}
     r1 = recall_at_k(ids, gt, 1)
     r10 = recall_at_k(ids, gt, 10)
     check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
@@ -527,7 +573,7 @@ def _main_path(svc, label: str, query, gt, counters: dict,
         f"request {first_s:.3f} s) launches {counts}")
     out = {"engine": label, "r1": r1, "r10": r10, "qps": qps,
            "batch_ms": [t * 1e3 for t in batch_s], "nq": query.shape[0],
-           "launches": counts}
+           "launches": counts, "launches_by_cores": by_cores}
     say(json.dumps(out))
     return out
 
@@ -563,6 +609,12 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     if device.type == "cuda":
         check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
               f"the {dtype} serving run launched no kernel: {counts}")
+    x = svc.fused.x_lo
+    main_path_route(records, f"binned_scan[{dtype}]", "binned_scan",
+                    st.scan_cores(x.dtype, x.shape[1], svc.fused.bin_size),
+                    {c: out["launches_by_cores"][f"binned_scan:{c}"]
+                     for c in ("tensor", "cuda")}, device,
+                    f"serve fused {dtype}")
     if targets:
         ref = REFERENCE[dtype]["r10"]
         check(abs(out["r10"] - ref) <= R10_TOL,
@@ -622,6 +674,7 @@ def shifted_fused(base, query, base_lo, gt, trained, device, records,
     ids = idx.search(qf, ql, k=10, c=c)[0].cpu().numpy()
     counts = {name: st.launches[name] for name in ("shifted_scan",
                                                    "merge_topc")}
+    by_cores = route_counts(st, "shifted_scan")
     r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
     check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
           and ids.max() < base.shape[0], "shifted result ids out of range")
@@ -646,6 +699,9 @@ def shifted_fused(base, query, base_lo, gt, trained, device, records,
     if device.type == "cuda":
         check(counts == {"shifted_scan": 1, "merge_topc": 0},
               f"a shifted search launched {counts}, not one T3 and no K2")
+    main_path_route(records, "shifted_scan", "shifted_scan",
+                    st.shifted_cores(idx.x_aug.dtype, width, idx.bin_size),
+                    by_cores, device, "fused shifted")
     if targets:
         check(abs(r10 - binned_r10) <= R10_TOL,
               f"shifted R@10 {r10:.4f} is not within {R10_TOL} of the binned "
@@ -662,14 +718,19 @@ def shifted_fused(base, query, base_lo, gt, trained, device, records,
 def shifted_kernel_check(st, idx, ql, base, base_lo, device, records):
     """T3 against its plain version at the serving shape (bf16) and at
     B = SHIFTED_KIND_B in fp16 and f32; its record: T3 ms (median of five),
-    bound (2·B·n_pad·d_aug at the TPU kernel's d_aug, bf16 rate), plain ms
-    and a bf16 torch.matmul of the same augmented operands."""
+    the CUDA-core kernel's on the same inputs (``earlier_ms``: the only
+    route before the tensor-core redesign), bound (2·B·n_pad·d_aug at the
+    TPU kernel's d_aug, bf16 rate), plain ms and a bf16 torch.matmul of the
+    same augmented operands."""
     import torch
 
     rep = _shifted_check(st, idx, ql, "bfloat16")
     q_aug = idx.shifted_queries(ql).to(torch.bfloat16)
     kw = dict(bin_size=idx.bin_size)
     ms = median_ms(lambda: st.shifted_scan(q_aug, idx.x_aug, **kw))
+    cores = st.shifted_cores(idx.x_aug.dtype, q_aug.shape[1], idx.bin_size)
+    earlier_ms = (ms if cores == "cuda" else median_ms(
+        lambda: st.shifted_scan(q_aug, idx.x_aug, **kw, cores="cuda")))
     plain_ms = time_ms(lambda: st.shifted_scan_plain(q_aug, idx.x_aug, **kw),
                        2)
     lib_ms = time_ms(lambda: torch.matmul(idx.x_aug, q_aug.T), 3)
@@ -680,14 +741,17 @@ def shifted_kernel_check(st, idx, ql, base, base_lo, device, records):
     n_bins = n_pad // idx.bin_size
     b_ms, b_by = bound_ms(B * width * 2 + n_pad * width * 2 + n_bins * B * 8,
                           2.0 * B * n_pad * d_aug, "bfloat16")
-    say(f"T3 [B={B} n_pad={n_pad} d_aug={width}]: {ms:.3f} ms (median of 5), "
-        f"plain {plain_ms:.3f} ms, torch.matmul of the augmented bf16 "
-        f"operands {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    say(f"T3 [B={B} n_pad={n_pad} d_aug={width}] on the {cores} cores: "
+        f"{ms:.3f} ms (median of 5; CUDA-core kernel {earlier_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, "
+        f"torch.matmul of the augmented bf16 operands {lib_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     records["shifted_scan"] = {
         **dict(name="shifted_scan", route="cuda", source=SHIFTED_SOURCE,
                replaces=REPLACES["shifted_scan"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, cores=cores,
+               earlier_ms=earlier_ms),
         **records.get("shifted_scan", {})}
     for dtype in ("float16", "float32"):
         kind = st.FusedScanIndex(base, base_lo, mode="shifted",
@@ -869,10 +933,13 @@ def graph_build(base_lo, device, records, targets: bool):
     versions, its reachability and its overlap with the exact build; then
     centroid entries and the bf16 hop payload."""
     import numpy as np
+    import torch
 
     from gbnns_tpu_torch.build.knn_graph import (build_knn_graph,
-                                                 forward_reachable)
+                                                 forward_reachable,
+                                                 fused_bin_size)
     from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.kernels.scan_topk import scan_width
     from gbnns_tpu_torch.search.entries import CentroidEntries
     from gbnns_tpu_torch.search.walker import default_entry_ids
     from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
@@ -886,6 +953,7 @@ def graph_build(base_lo, device, records, targets: bool):
     secs = time.perf_counter() - t0
     counts = {name: st.launches[name] for name in ("binned_scan",
                                                    "merge_topc")}
+    by_cores = route_counts(st, "binned_scan")
     say(f"fused graph {graph.shape}: {secs:.2f} s (sweep "
         f"{stats['scan_s']:.2f} s, reverse edges {stats['reverse_s']:.2f} s, "
         f"ensure_connected {stats['connect_s']:.2f} s) launches {counts}")
@@ -896,6 +964,12 @@ def graph_build(base_lo, device, records, targets: bool):
     if device.type == "cuda":
         check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
               f"the fused build launched no kernel: {counts}")
+    # the build scans bf16 at the kernel's width in bins of fused_bin_size
+    main_path_route(records, "binned_scan[bfloat16,packed]", "binned_scan",
+                    st.scan_cores(torch.bfloat16, scan_width(base_lo.shape[1]),
+                                  fused_bin_size(n, GRAPH_K)),
+                    by_cores, device, "graph build")
+    if device.type == "cuda":
         build_chunk_check(base_lo, device, records)
     reached = forward_reachable(graph, np.asarray(default_entry_ids(n)))
     say(f"reachable from the walker's entries: {int(reached.sum())}/{n}")

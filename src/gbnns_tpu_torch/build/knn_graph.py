@@ -105,6 +105,17 @@ def _torch_dtype(dtype) -> torch.dtype:
     return found
 
 
+def fused_bin_size(n: int, K: int) -> int:
+    """The fused sweep's bin: 1024 rows, halved for tiny corpora so that a
+    node keeps enough bins (at least 4 (K + 1)), down to 8."""
+    bin_size = 1024
+    while n < 4 * bin_size * (K + 1):
+        bin_size //= 2
+        if bin_size <= 8:
+            break
+    return max(8, bin_size)
+
+
 @torch.no_grad()
 def fused_operands(base: np.ndarray, K: int, *, metric: str = "l2",
                    device=None):
@@ -117,12 +128,7 @@ def fused_operands(base: np.ndarray, K: int, *, metric: str = "l2",
     dev = resolve_device(device)
     n, d = base.shape
     chunk = 16384
-    bin_size = 1024
-    while n < 4 * bin_size * (K + 1):  # tiny corpora: keep enough bins
-        bin_size //= 2
-        if bin_size <= 8:
-            break
-    bin_size = max(8, bin_size)
+    bin_size = fused_bin_size(n, K)
     n_pad = -(-n // chunk) * chunk if n >= chunk else chunk
     # zero columns up to the kernel's width add nothing to a dot product
     lo_pad = np.zeros((n_pad, scan_width(d)), np.float32)

@@ -22,25 +22,45 @@
 //   Bound on an H100 SXM at the serving shapes (n = 1M, B = 16384, d = 32):
 //   2*B*n*d = 1.07 TFLOP, 1.1 ms at the 989 TFLOP/s bf16 tensor-core peak
 //   (0.55 ms at 1,979 TOP/s int8), against ~0.06 ms for the bytes (64 MB of
-//   corpus, 128 MB of winners), so it is bound by operations. This first
-//   version runs on the CUDA cores: fp32 FMAs from bf16 inputs, exact int32
-//   dp4a from int8 inputs. What the design does about the bound: a block
-//   owns one bin and 128*QPT queries; each thread keeps QPT queries in
-//   registers and a running (min, argmin) per query, corpus rows are staged
-//   in 16 KB of shared memory and read as warp-wide broadcasts, so the inner
-//   loop is FMAs (dp4a) with one 16-byte shared load per four (sixteen)
-//   elements of a row. The scores never reach device memory. Tensor cores
-//   (mma.sync / wgmma) and TMA are left for a later change.
-//   f32 inputs take the same kernel with 4-byte rows and fp32 FMAs (no TF32,
-//   which would change the result); its bound is 2*B*n*d at the 67 TFLOP/s
-//   fp32 rate of the CUDA cores. fp16 inputs take the bf16 path: widened to
-//   f32 exactly as they are staged (prescaling by -2 is exact in fp16 too),
-//   fp32 FMAs, the same bound as bf16 (989 TFLOP/s fp16 tensor cores).
-//   Widths: d in {16, 32, 64, 128} holds 128 / d queries per thread in
-//   registers (binned_scan_kernel). Any wider d, a multiple of 16, takes
-//   binned_scan_wide_kernel: one query per thread, 32 corpus rows per step
-//   staged 64 columns at a time, the query read 16 columns at a time into
-//   registers and the 32 row sums kept in registers across the slabs.
+//   corpus, 128 MB of winners), so it is bound by operations. Two routes,
+//   chosen by the caller (scan_topk.scan_cores) and passed in:
+//   * Tensor cores (binned_scan_tc_kernel): bf16, fp16 and int8 at d in
+//     {16, 32, 64, 128}, bins a multiple of 16 rows. mma.sync m16n8k16
+//     (bf16/fp16 -> f32: exact products, f32 sums in the tensor core's
+//     order) or m16n8k32 (s8 -> s32, exact). A = 16 corpus rows (ldmatrix
+//     from shared memory, rows padded to an odd multiple of 16 bytes so the
+//     reads are free of bank conflicts), B = 8 queries held in registers
+//     for the whole bin (the loop is gbnns::tc_scan_bin in common.cuh,
+//     shared with T3). The fragment layout tells each lane which (row,
+//     query) scores it holds, so the selection runs on them in registers:
+//     once the product is on the tensor cores, this epilogue sets the pace
+//     (B * n_pad = 1.66e10 scores: unpacked 3 instructions a score, a
+//     compare and two selects, addvec riding in the mma's C operand;
+//     packed a flip and a mask-or a score and one three-way integer min
+//     (DPX) a row pair; int8 adds the exact convert, mul and add). The
+//     compiled loop is ~140 warp instructions per 1,024 scores of which 16
+//     are mma: the selection, not the product, keeps the kernel above its
+//     1.1 ms bound (PERF.md §6 has the times).
+//     Grid: one block per (bin, 512-query tile), the query tile fastest,
+//     so the blocks in flight read a few bins and those come from L2 (each
+//     bin's 64 KB is read from device memory about once); a block streams
+//     its bin through a two-stage cp.async ring. The alternative, a block
+//     staging a whole bin once and looping over query tiles, needs 80 KB of
+//     shared memory a block and leaves a tail of ~1,000 long blocks on 132
+//     SMs; the L2 order gets the same reuse with small blocks.
+//   * CUDA cores (binned_scan_kernel, binned_scan_wide_kernel): f32 (no
+//     TF32, which would change the result; bound 2*B*n*d at the 67 TFLOP/s
+//     fp32 rate), every kind at d > 128, and bins that are not a multiple
+//     of 16 rows. A block owns one bin and 128*QPT queries; each thread
+//     keeps QPT queries in registers and a running (min, argmin) per query,
+//     corpus rows are staged in 16 KB of shared memory (bf16 and fp16
+//     widened to f32 exactly) and read as warp-wide broadcasts: fp32 FMAs,
+//     or exact int32 dp4a for int8. d in {16, 32, 64, 128} holds 128 / d
+//     queries per thread in registers (binned_scan_kernel). Any wider d, a
+//     multiple of 16, takes binned_scan_wide_kernel: one query per thread,
+//     32 corpus rows per step staged 64 columns at a time, the query read
+//     16 columns at a time into registers and the 32 row sums kept in
+//     registers across the slabs.
 //
 // K2 merge_topc -- replaces scan_topk_pallas.py _merge_topc_kernel
 //   (pallas_call at line 600, reached through _merge_topc_stage and
@@ -418,6 +438,67 @@ binned_scan_wide_kernel(const void* __restrict__ q_ptr,
   }
 }
 
+// ---- K1 on the tensor cores: bf16, fp16 and int8 at d in {16, 32, 64,
+// 128}, bins a multiple of 16 rows. The loop is gbnns::tc_scan_bin
+// (common.cuh); K1 gives it addvec, its key (the (min, row) pair, or the
+// flipped key when PACKED) and D elements of KIND a row: KS k-slabs of 32
+// bytes, int8 at d = 16 zero-padding its row to 32 bytes.
+template <int D, int KIND>
+struct ScanTc {
+  static constexpr int kRowBytes = D * (KIND == kInt8 ? 1 : 2);
+  static constexpr int KS = (kRowBytes + 31) / 32;
+  using S = gbnns::TcShape<KS>;
+};
+
+template <int D, int KIND, bool PACKED>
+__global__ void __launch_bounds__(gbnns::kTcThreads, 2)
+binned_scan_tc_kernel(const void* __restrict__ q_ptr,
+                      const void* __restrict__ x_ptr,
+                      const float* __restrict__ addvec,
+                      const float* __restrict__ alpha,
+                      float* __restrict__ out_val, int* __restrict__ out_idx,
+                      int B, int bin_size, int idx_bits, int q_tiles) {
+  using T = ScanTc<D, KIND>;
+  constexpr int kStage = T::S::kChunk * T::S::kPitch;
+  __shared__ __align__(16) unsigned char xs[2 * kStage];
+  __shared__ __align__(16) float adds[2 * T::S::kChunk];
+  constexpr int kSel = PACKED ? gbnns::kSelFlip : gbnns::kSelMin;
+  gbnns::tc_scan_bin<KIND, T::KS, kSel, true, 16>(
+      xs, kStage, adds, q_ptr, x_ptr, addvec, alpha, out_val, out_idx, B,
+      bin_size, idx_bits, q_tiles, T::kRowBytes, T::KS, false, T::S::kPitch);
+}
+
+template <int D>
+cudaError_t launch_scan_tc(const void* q, const void* x, const float* addvec,
+                           const float* alpha, float* out_val, int* out_idx,
+                           int B, int n_bins, int bin_size, int idx_bits,
+                           int kind, bool packed, cudaStream_t stream) {
+#define GBNNS_TC(KI, PK)                                                    \
+  do {                                                                      \
+    const int q_tiles =                                                     \
+        gbnns::tc_query_tiles<ScanTc<D, KI>::KS>(B);                        \
+    binned_scan_tc_kernel<D, KI, PK>                                        \
+        <<<(unsigned)((long long)n_bins * q_tiles), gbnns::kTcThreads, 0,   \
+           stream>>>(q, x, addvec, alpha, out_val, out_idx, B, bin_size,    \
+                     idx_bits, q_tiles);                                    \
+  } while (0)
+  switch (kind) {
+    case kBf16:
+      if (packed) GBNNS_TC(kBf16, true); else GBNNS_TC(kBf16, false);
+      break;
+    case kF16:
+      if (packed) GBNNS_TC(kF16, true); else GBNNS_TC(kF16, false);
+      break;
+    case kInt8:
+      if (packed) GBNNS_TC(kInt8, true); else GBNNS_TC(kInt8, false);
+      break;
+    default:
+      return cudaErrorInvalidValue;  // f32 runs on the CUDA cores
+  }
+#undef GBNNS_TC
+  return cudaGetLastError();
+}
+
 // D = 0 selects binned_scan_wide_kernel.
 template <int D>
 cudaError_t launch_scan(const void* q, const void* x, const float* addvec,
@@ -520,10 +601,13 @@ const char* gbnns_error_string(int err) {
 // (n_pad / bin_size, B).
 // d in {16, 32, 64, 128} or any larger multiple of 16; n_pad % bin_size ==
 // 0; PACKED needs a power-of-two bin_size. Pointers 16-byte aligned.
+// tensor_cores = 1 takes binned_scan_tc_kernel (bf16, fp16, int8; d in
+// {16, 32, 64, 128}; bin_size a multiple of 16; anything else is refused),
+// 0 the CUDA-core kernels. The caller chooses (scan_topk.scan_cores).
 int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
                       const float* alpha, float* out_val, int* out_idx,
                       int B, int n_pad, int d, int bin_size, int kind,
-                      int packed, void* stream) {
+                      int packed, int tensor_cores, void* stream) {
   if (B <= 0 || bin_size <= 0 || n_pad <= 0 || n_pad % bin_size != 0 ||
       kind < kBf16 || kind > kF16)
     return cudaErrorInvalidValue;
@@ -532,6 +616,21 @@ int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
   if (packed && (1 << idx_bits) != bin_size) return cudaErrorInvalidValue;
   const int n_bins = n_pad / bin_size;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (kind == kF32 || bin_size % gbnns::kTcRowTile != 0)
+      return cudaErrorInvalidValue;
+#define GBNNS_LAUNCH_TC(DD)                                                 \
+  launch_scan_tc<DD>(q, x, addvec, alpha, out_val, out_idx, B, n_bins,      \
+                     bin_size, idx_bits, kind, packed, s)
+    switch (d) {
+      case 16: return GBNNS_LAUNCH_TC(16);
+      case 32: return GBNNS_LAUNCH_TC(32);
+      case 64: return GBNNS_LAUNCH_TC(64);
+      case 128: return GBNNS_LAUNCH_TC(128);
+      default: return cudaErrorInvalidValue;
+    }
+#undef GBNNS_LAUNCH_TC
+  }
 #define GBNNS_LAUNCH(DD)                                                   \
   launch_scan<DD>(q, x, addvec, alpha, out_val, out_idx, B, d, n_bins,     \
                   bin_size, idx_bits, kind, packed, s)

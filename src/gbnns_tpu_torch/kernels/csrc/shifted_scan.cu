@@ -22,32 +22,38 @@
 //   order, as in the Pallas kernel) and writes bin-major
 //     val = key & ~mask read as f32,  id = (key & mask) + bin * bin_size.
 //   Kinds: bf16, fp16, f32 (the Pallas index casts x_aug to any float type).
-//   Widths: d_aug in {20, 36, 68, 132}, the reduced width 16/32/64/128 plus
-//   the four augmented columns. The l2 operands at d' = 32 are exactly 36
-//   wide, with no padding; an ip corpus is one column wider than its data
-//   (33 at d' = 32), and FusedScanIndex pads it to 36 with zero columns,
-//   9 % more FMAs than its 33. A width of 36 would go to 64 in K1's
-//   16/32/64/128 register layout (78 % more FMAs); rows of 36 staged as f32
-//   are 144 bytes, a multiple of 16, and 72 bytes as bf16, a multiple of 8,
-//   so 8-byte loads stage them with no padding.
+//   The l2 operands at d' = 32 are exactly 36 wide; an ip corpus is one
+//   column wider than its data (33 at d' = 32), and FusedScanIndex pads it
+//   to 36 with zero columns.
 //   Bound on an H100 SXM at the serving shape (n_pad = 1,015,808, B =
 //   16,384, d_aug = 36 as the TPU kernel computes it, not a padded width):
 //   2*B*n_pad*d_aug = 1.198 TFLOP, 1.21 ms at the 989 TFLOP/s bf16 tensor-
 //   core peak, against ~0.2 GB of bytes (~0.06 ms): bound by operations.
-//   What the design does about it: this first version runs on the CUDA
-//   cores, as K1 does (fp32 FMAs from the widened bf16/fp16 inputs, exact
-//   products; f32 inputs with no TF32). A block owns one bin and 128*QPT
-//   queries; each thread keeps QPT augmented queries in registers (QPT =
-//   128 / d_aug, at least 1: three at d_aug = 36) and a running key per
-//   query; corpus rows are staged in 16 KB of shared memory as f32 and read
-//   as warp-wide float4 broadcasts, so the inner loop is 4*QPT FMAs per
-//   16-byte shared load. The score epilogue is an and, an or and a min: the
-//   addvec load, add and sign flip of K1 are gone. No score reaches device
-//   memory. Query rows past B are not loaded (their threads hold zeros and
-//   write nothing): the Pallas kernel's zero-padded queries meet the
-//   padding rows' +inf as 0*inf = NaN, which here never reaches a real
-//   query's key. Tensor cores (mma.sync / wgmma) are left for a later
-//   change.
+//   Two routes, chosen by the caller (scan_topk.shifted_cores) and passed
+//   in:
+//   * Tensor cores (shifted_scan_tc_kernel): bf16 and fp16, any d_aug that
+//     is a multiple of 4 up to 264, bins a multiple of 16 rows. mma.sync
+//     m16n8k16 over the first 16 * floor(W / 16) columns of W =
+//     round_up(d_aug, 8), then one m16n8k8 for the last 8 when W % 16 ==
+//     8: 36 runs as 2 x k16 + k8 over 40 columns (+11 % MACs). Exact
+//     products, f32 sums in the tensor core's order. The loop is K1's
+//     (gbnns::tc_scan_bin, common.cuh): queries in registers as B
+//     fragments, a bin's rows through a cp.async ring and ldmatrix, one
+//     block per (bin, 512-query tile) with the query tile fastest so the
+//     bin comes from L2. Once the
+//     product is on the tensor cores the epilogue sets the pace: here the
+//     cheapest of the scans, an and-or a score and one three-way integer
+//     min (DPX) a row pair, against K1's three instructions a score.
+//   * CUDA cores (shifted_scan_kernel): f32 (no TF32, which would change
+//     the result) and bins of fewer than 16 rows, at d_aug in {20, 36, 68,
+//     132}. A block owns one bin and 128*QPT queries; each thread keeps
+//     QPT augmented queries in registers (QPT = 128 / d_aug, at least 1)
+//     and a running key per query; corpus rows are staged in 16 KB of
+//     shared memory as f32 and read as warp-wide float4 broadcasts, so the
+//     inner loop is 4*QPT FMAs per 16-byte shared load.
+//   Query rows past B are not loaded (they hold zeros and write nothing):
+//   the Pallas kernel's zero-padded queries meet the padding rows' +inf as
+//   0*inf = NaN, which here never reaches a real query's key.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,6 +155,58 @@ shifted_scan_kernel(const void* __restrict__ q_ptr,
   }
 }
 
+// ---- T3 on the tensor cores: bf16 and fp16, any d_aug that is a
+// multiple of 4 up to kTcMaxWidth, bins a multiple of 16 rows. The loop is
+// K1's, gbnns::tc_scan_bin (common.cuh), with the raw-bits key, no addvec
+// and a width known only at run time: W = round_up(d_aug, 8) columns are
+// W / 16 k16 steps of query fragments held in registers (KMAX of them at
+// most: a bucket) and one k8 step for a last 8 columns, so 36 runs over 40
+// columns (11 % more MACs than the data, where padding to 48 would be
+// 33 %); a 36-wide bf16 row is 72 bytes, not a multiple of 16, so its
+// copies are 8 bytes, into rows whose columns d_aug..W are zero.
+constexpr int kTcMaxWidth = 264;  // 16 k16 steps + one k8 tail
+
+template <int KMAX, int KIND>
+__global__ void __launch_bounds__(gbnns::kTcThreads, 2)
+shifted_scan_tc_kernel(const void* __restrict__ q_ptr,
+                       const void* __restrict__ x_ptr,
+                       float* __restrict__ out_val, int* __restrict__ out_idx,
+                       int B, int d, int bin_size, int idx_bits,
+                       int q_tiles) {
+  using S = gbnns::TcShape<KMAX>;
+  constexpr int kStage = S::kChunk * S::kPitch;
+  __shared__ __align__(16) unsigned char xs[2 * kStage];
+  const int w = (d + 7) & ~7;
+  gbnns::tc_scan_bin<KIND, KMAX, gbnns::kSelRaw, false, 8>(
+      xs, kStage, nullptr, q_ptr, x_ptr, nullptr, nullptr, out_val, out_idx,
+      B, bin_size, idx_bits, q_tiles, d * 2, w / 16, (w & 15) != 0,
+      gbnns::tc_pitch(w * 2));
+}
+
+template <int KMAX>
+cudaError_t launch_shifted_tc(const void* q, const void* x, float* out_val,
+                              int* out_idx, int B, int d, int n_bins,
+                              int bin_size, int idx_bits, int kind,
+                              cudaStream_t stream) {
+  const int q_tiles = gbnns::tc_query_tiles<KMAX>(B);
+  const unsigned grid = (unsigned)((long long)n_bins * q_tiles);
+  switch (kind) {
+    case kBf16:
+      shifted_scan_tc_kernel<KMAX, kBf16>
+          <<<grid, gbnns::kTcThreads, 0, stream>>>(
+              q, x, out_val, out_idx, B, d, bin_size, idx_bits, q_tiles);
+      break;
+    case kF16:
+      shifted_scan_tc_kernel<KMAX, kF16>
+          <<<grid, gbnns::kTcThreads, 0, stream>>>(
+              q, x, out_val, out_idx, B, d, bin_size, idx_bits, q_tiles);
+      break;
+    default:
+      return cudaErrorInvalidValue;  // f32 runs on the CUDA cores
+  }
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_shifted(const void* q, const void* x, float* out_val,
                            int* out_idx, int B, int n_bins, int bin_size,
@@ -184,11 +242,14 @@ const char* gbnns_error_string(int err) {
 
 // q_aug (B, d) and x_aug (n_pad, d) of one kind: 0 bf16, 2 f32, 3 fp16 (the
 // kinds of scan_topk.cu; int8 is refused); out_val f32 / out_idx int32,
-// both (n_pad / bin_size, B). d in {20, 36, 68, 132}; bin_size a power of
-// two dividing n_pad. Pointers 16-byte aligned.
+// both (n_pad / bin_size, B); bin_size a power of two dividing n_pad.
+// tensor_cores = 1 takes shifted_scan_tc_kernel (bf16, fp16; d a multiple
+// of 4 up to 264; bin_size a multiple of 16), 0 the CUDA-core kernel (d in
+// {20, 36, 68, 132}); anything else is refused. The caller chooses
+// (scan_topk.shifted_cores). Pointers 16-byte aligned.
 int gbnns_shifted_scan(const void* q, const void* x, float* out_val,
                        int* out_idx, int B, int n_pad, int d, int bin_size,
-                       int kind, void* stream) {
+                       int kind, int tensor_cores, void* stream) {
   int idx_bits = 0;
   while ((1 << idx_bits) < bin_size) ++idx_bits;
   if (B <= 0 || bin_size <= 0 || (1 << idx_bits) != bin_size ||
@@ -197,6 +258,23 @@ int gbnns_shifted_scan(const void* q, const void* x, float* out_val,
     return cudaErrorInvalidValue;
   const int n_bins = n_pad / bin_size;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (kind == kF32 || bin_size % gbnns::kTcRowTile != 0 || d <= 0 ||
+        d % 4 != 0 || d > kTcMaxWidth)
+      return cudaErrorInvalidValue;
+    const int k16 = ((d + 7) & ~7) / 16;
+    if (k16 <= 2)
+      return launch_shifted_tc<2>(q, x, out_val, out_idx, B, d, n_bins,
+                                  bin_size, idx_bits, kind, s);
+    if (k16 <= 4)
+      return launch_shifted_tc<4>(q, x, out_val, out_idx, B, d, n_bins,
+                                  bin_size, idx_bits, kind, s);
+    if (k16 <= 8)
+      return launch_shifted_tc<8>(q, x, out_val, out_idx, B, d, n_bins,
+                                  bin_size, idx_bits, kind, s);
+    return launch_shifted_tc<16>(q, x, out_val, out_idx, B, d, n_bins,
+                                 bin_size, idx_bits, kind, s);
+  }
   switch (d) {
     case 20:
       return launch_shifted<20>(q, x, out_val, out_idx, B, n_bins, bin_size,

@@ -32,7 +32,10 @@ K2; ``csrc/shifted_scan.cu``: T3; ``csrc/gated_topm.cu``: T4) for CUDA
 tensors and takes its plain PyTorch version (``binned_scan_plain``,
 ``merge_topc_plain``, ``shifted_scan_plain``, ``gated_topm_scan_plain``)
 only for CPU tensors. ``launches`` counts the kernel launches of each
-wrapper.
+wrapper. K1 and T3 run on the tensor cores or on the CUDA cores, as
+``scan_cores`` and ``shifted_cores`` decide from the kind and the shape
+(there is no fallback from one to the other); ``launches_by_cores`` counts
+their launches by route.
 """
 
 from __future__ import annotations
@@ -59,7 +62,50 @@ _INT_MAX = 0x7FFFFFFF
 
 launches = _build.LaunchCounts("binned_scan", "merge_topc", "shifted_scan",
                                "gated_topm")
-reset_launches = launches.reset
+launches_by_cores = _build.LaunchCounts(
+    "binned_scan:tensor", "binned_scan:cuda", "shifted_scan:tensor",
+    "shifted_scan:cuda")
+
+
+def reset_launches() -> None:
+    """Set every launch count (and the per-route counts) to 0."""
+    launches.reset()
+    launches_by_cores.reset()
+
+
+# The tensor-core scans run 16 corpus rows a product (mma.sync's M), so a
+# bin must be a multiple of that; T3's tensor-core kernel holds its query
+# fragments in registers up to this augmented width.
+TC_ROW_TILE = 16
+SHIFTED_TC_MAX_WIDTH = 264
+_TC_KINDS = (torch.bfloat16, torch.float16, torch.int8)
+
+
+def _as_dtype(kind) -> torch.dtype:
+    return getattr(torch, kind) if isinstance(kind, str) else kind
+
+
+def scan_cores(kind, d: int, bin_size: int) -> str:
+    """Which K1 kernel a scan of element type ``kind`` (a torch dtype or its
+    name) at width ``d`` and ``bin_size`` launches: "tensor" (bf16, fp16 and
+    int8 at d in ``SCAN_WIDTHS``, bins a multiple of ``TC_ROW_TILE``) or
+    "cuda" (f32, whose tensor-core form TF32 would change the result; wider
+    d; other bins)."""
+    if (_as_dtype(kind) in _TC_KINDS and d in SCAN_WIDTHS
+            and bin_size % TC_ROW_TILE == 0):
+        return "tensor"
+    return "cuda"
+
+
+def shifted_cores(kind, d_aug: int, bin_size: int = 1024) -> str:
+    """Which T3 kernel a shifted scan launches: "tensor" (bf16 and fp16, any
+    d_aug that is a multiple of 4 up to ``SHIFTED_TC_MAX_WIDTH``, bins a
+    multiple of ``TC_ROW_TILE``) or "cuda" (f32, and the rest)."""
+    if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
+            and d_aug % 4 == 0 and 0 < d_aug <= SHIFTED_TC_MAX_WIDTH
+            and bin_size % TC_ROW_TILE == 0):
+        return "tensor"
+    return "cuda"
 
 
 def _round_up(a: int, m: int) -> int:
@@ -88,7 +134,7 @@ def _library():
     lib = _build.load("scan_topk")
     if not getattr(lib, "_gbnns_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gbnns_binned_scan.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.gbnns_binned_scan.argtypes = [p, p, p, p, p, p] + [i] * 7 + [p]
         lib.gbnns_binned_scan.restype = i
         lib.gbnns_merge_topc_stage.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gbnns_merge_topc_stage.restype = i
@@ -100,7 +146,7 @@ def _shifted_library():
     lib = _build.load("shifted_scan")
     if not getattr(lib, "_gbnns_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gbnns_shifted_scan.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gbnns_shifted_scan.argtypes = [p, p, p, p] + [i] * 6 + [p]
         lib.gbnns_shifted_scan.restype = i
         lib._gbnns_bound = True
     return lib
@@ -180,7 +226,7 @@ def binned_scan_plain(q, x, addvec, alpha=None, *, bin_size: int = 1024,
 
 
 def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
-                packed: bool = False):
+                packed: bool = False, cores: str | None = None):
     """Bin winners of the full scan, bin-major: ``(vals (n_bins, B) f32,
     ids (n_bins, B) int32)``, ids being corpus rows.
 
@@ -189,8 +235,12 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
     only. d is one of ``SCAN_WIDTHS`` or a larger multiple of 16.
     ``packed`` selects on an int key with the score quantized to 2^-13
     relative (ties to the lower row). CPU tensors take
-    ``binned_scan_plain``; CUDA tensors launch K1.
+    ``binned_scan_plain``; CUDA tensors launch K1 on the cores
+    ``scan_cores`` names, or on ``cores`` ("cuda" takes every shape,
+    "tensor" only those ``scan_cores`` gives it) to compare the routes.
     """
+    route = _route(cores, scan_cores(x.dtype, q.shape[1], bin_size),
+                   "binned_scan")
     if x.device.type == "cpu":
         return binned_scan_plain(q, x, addvec, alpha, bin_size=bin_size,
                                  packed=packed)
@@ -214,9 +264,10 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
             q.data_ptr(), x.data_ptr(), addvec.data_ptr(),
             alpha.data_ptr() if quant else None, vals.data_ptr(),
             ids.data_ptr(), B, x.shape[0], d, bin_size, _KINDS[x.dtype],
-            int(packed), stream)
+            int(packed), int(route == "tensor"), stream)
     _build.check(lib, err, "binned_scan")
     launches.count("binned_scan")
+    launches_by_cores.count(f"binned_scan:{route}")
     return vals, ids
 
 
@@ -287,11 +338,42 @@ def augment_queries(q: torch.Tensor, metric: str,
     return torch.cat([q, cq[:, None]], 1)
 
 
-# The shifted kernel's element kinds and widths: a reduced width of
-# SCAN_WIDTHS plus the four augmented columns (an ip corpus, one column
-# wider than its data, pads three zero columns to the same width).
+# The shifted kernels' element kinds, and the widths of the CUDA-core
+# kernel: a reduced width of SCAN_WIDTHS plus the four augmented columns
+# (an ip corpus, one column wider than its data, pads three zero columns to
+# the same width). The tensor-core kernel takes any multiple of 4 up to
+# SHIFTED_TC_MAX_WIDTH.
 _SHIFTED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SHIFTED_WIDTHS = tuple(w + 4 for w in SCAN_WIDTHS)
+
+
+def _route(cores, default: str, what: str) -> str:
+    """``cores`` as asked (None: ``default``, the route function's choice);
+    "tensor" only where that function gives it."""
+    if cores is None:
+        return default
+    if cores not in ("tensor", "cuda"):
+        raise ValueError(f"cores is 'tensor', 'cuda' or None, not {cores!r}")
+    if cores == "tensor" and default != "tensor":
+        raise ValueError(f"{what} has no tensor-core kernel for this kind "
+                         f"and shape")
+    return cores
+
+
+def check_shifted_width(kind, d_aug: int, bin_size: int = 1024,
+                        cores: str | None = None) -> str:
+    """The T3 route for ``kind`` at ``d_aug``: ``cores``, or
+    ``shifted_cores``'s when None; raises ValueError for a width that
+    route's kernel does not take."""
+    cores = _route(cores, shifted_cores(kind, d_aug, bin_size),
+                   "shifted_scan")
+    if cores == "cuda" and d_aug not in SHIFTED_WIDTHS:
+        raise ValueError(
+            f"the shifted kernel takes d_aug in {SHIFTED_WIDTHS} on the "
+            f"CUDA cores (f32, or bins under {TC_ROW_TILE} rows) and a "
+            f"multiple of 4 up to {SHIFTED_TC_MAX_WIDTH} on the tensor "
+            f"cores, got {d_aug} for {kind}")
+    return cores
 
 
 def _check_shifted_args(q_aug, x_aug, bin_size: int) -> None:
@@ -350,7 +432,8 @@ def shifted_scan_plain(q_aug, x_aug, *, bin_size: int = 1024):
     return vals.T, ids.T
 
 
-def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024):
+def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024,
+                 cores: str | None = None):
     """Bin winners of the shifted-key scan, query-major: ``(vals (B,
     n_bins) f32, ids (B, n_bins) int32)``; the values are the scores
     quantized to 2^(log2 bin_size - 23) relative (monotone within a
@@ -359,8 +442,11 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024):
     q_aug (B, d_aug) from ``augment_queries`` (cast to the corpus type),
     x_aug (n_pad, d_aug) bfloat16, float16 or float32 from
     ``augment_corpus``, n_pad a multiple of the power-of-two ``bin_size``.
-    CPU tensors take ``shifted_scan_plain``; CUDA tensors launch T3 (d_aug
-    in ``SHIFTED_WIDTHS``)."""
+    CPU tensors take ``shifted_scan_plain``; CUDA tensors launch T3 on the
+    cores ``shifted_cores`` names, or on ``cores`` as ``binned_scan`` takes
+    it (widths: ``check_shifted_width``)."""
+    route = _route(cores, shifted_cores(x_aug.dtype, q_aug.shape[1],
+                                        bin_size), "shifted_scan")
     if x_aug.device.type == "cpu":
         return shifted_scan_plain(q_aug, x_aug, bin_size=bin_size)
     _check_shifted_args(q_aug, x_aug, bin_size)
@@ -368,9 +454,7 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024):
         raise ValueError(f"shifted_scan runs on cuda or cpu, not "
                          f"{x_aug.device}")
     B, d_aug = q_aug.shape
-    if d_aug not in SHIFTED_WIDTHS:
-        raise ValueError(f"the shifted kernel takes d_aug in "
-                         f"{SHIFTED_WIDTHS}, got {d_aug}")
+    cores = check_shifted_width(x_aug.dtype, d_aug, bin_size, route)
     q, x = _build.aligned(q_aug.to(x_aug.dtype)), _build.aligned(x_aug)
     n_bins = x.shape[0] // bin_size
     vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
@@ -380,9 +464,11 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gbnns_shifted_scan(
             q.data_ptr(), x.data_ptr(), vals.data_ptr(), ids.data_ptr(), B,
-            x.shape[0], d_aug, bin_size, _KINDS[x.dtype], stream)
+            x.shape[0], d_aug, bin_size, _KINDS[x.dtype],
+            int(cores == "tensor"), stream)
     _build.check(lib, err, "shifted_scan")
     launches.count("shifted_scan")
+    launches_by_cores.count(f"shifted_scan:{cores}")
     return vals.T, ids.T
 
 

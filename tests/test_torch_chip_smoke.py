@@ -54,6 +54,17 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
                             "row_gather", "gated_topm", "shifted_scan",
                             "knn_topk"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
+    # K1 and T3 on the main paths: their route and their launches by route
+    # (none on the CPU; the timed kernel checks, earlier_ms among them,
+    # need the card)
+    for name in ("binned_scan[bfloat16]", "binned_scan[int8]",
+                 "binned_scan[bfloat16,packed]", "shifted_scan"):
+        rec = records[name]
+        assert rec["cores"] == "tensor", name
+        assert rec["launches_by_cores"] == {"tensor": 0, "cuda": 0}, name
+    for what in ("serve fused bfloat16", "serve fused int8", "graph build",
+                 "fused shifted"):
+        assert f"{what}: " in out and "routed to the tensor cores" in out
     assert set(threading.enumerate()) <= before
 
 

@@ -57,9 +57,13 @@ def test_binned_scan_kernel_matches_plain(dev, d, quant, packed, bin_size):
                         for t in _scan_inputs(n, d, B, quant))
     add[-37:] = float("inf")  # padding rows never win
     before = st.launches["binned_scan"]
+    cores = st.scan_cores(x.dtype, d, bin_size)
+    assert cores == ("cuda" if bin_size == 8 else "tensor")
+    on_route = st.launches_by_cores[f"binned_scan:{cores}"]
     got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed)
     torch.cuda.synchronize()
     assert st.launches["binned_scan"] == before + 1
+    assert st.launches_by_cores[f"binned_scan:{cores}"] == on_route + 1
     ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
                                packed=packed)
     rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
@@ -117,6 +121,95 @@ def test_binned_scan_kernel_odd_bin(dev):
     got = st.binned_scan(q, x, add, bin_size=96)
     ref = st.binned_scan_plain(q, x, add, bin_size=96)
     rep = st.scan_agreement(got, ref, q, x, add, bin_size=96, packed=False)
+    assert rep["ok"], rep
+
+
+def _tensor_scan(q, x, add, alpha, bin_size, packed):
+    """K1 on the tensor cores, with its launch counted on that route."""
+    assert st.scan_cores(x.dtype, x.shape[1], bin_size) == "tensor"
+    before = st.launches_by_cores["binned_scan:tensor"]
+    got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed)
+    torch.cuda.synchronize()
+    assert st.launches_by_cores["binned_scan:tensor"] == before + 1
+    return got
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("bin_size", [16, 64, 1024])
+@pytest.mark.parametrize("B", [1, 127, 1000])
+@pytest.mark.parametrize("packed", [False, True])
+def test_tensor_scan_matches_plain(dev, kind, bin_size, B, packed):
+    """The tensor-core K1 at bins of one row tile up to the serving bin and
+    batches that are not a multiple of its query tile; the last bin holds
+    padding rows only: +inf and the bin's first row, as plain gives."""
+    n = 4096
+    q, x, add, alpha = (t.to(dev) if t is not None else None
+                        for t in _scan_inputs(n, 32, B, kind == "int8"))
+    if kind == "float16":
+        q, x = q.to(torch.float16), x.to(torch.float16)
+    add[-37:] = float("inf")
+    add[n - bin_size:] = float("inf")
+    got = _tensor_scan(q, x, add, alpha, bin_size, packed)
+    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
+                               packed=packed)
+    assert got[0].shape == ref[0].shape == (n // bin_size, B)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
+                            packed=packed, rtol=1e-5)
+    assert rep["ok"], rep
+    assert torch.isinf(got[0][-1]).all()
+    assert (got[1][-1] == n - bin_size).all()
+    if kind == "int8":  # exact integer dots, the same two roundings
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_tensor_scan_ties_go_to_the_lower_row(dev, kind, packed, d):
+    """Eight distinct small-integer rows, each stored many times at
+    shuffled positions: every sum is exact in both versions, so the
+    kernel must give plain's values and, among tied copies, its lower
+    row exactly."""
+    rng = np.random.default_rng(d + packed)
+    n, B, bin_size = 4096, 300, 256
+    distinct = rng.integers(-3, 4, size=(8, d)).astype(np.float32)
+    x = distinct[rng.integers(0, 8, n)]
+    q = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    add = torch.from_numpy((x ** 2).sum(-1).astype(np.float32)).to(dev)
+    alpha = None
+    if kind == "int8":
+        qt, xt = (torch.from_numpy(a.astype(np.int8)) for a in (q, x))
+        alpha = torch.full((B,), -2.0, device=dev)
+    else:
+        dt_ = getattr(torch, kind)
+        qt, xt = torch.from_numpy(q).to(dt_), torch.from_numpy(-2 * x).to(dt_)
+    qt, xt = qt.to(dev), xt.to(dev)
+    got = _tensor_scan(qt, xt, add, alpha, bin_size, packed)
+    ref = st.binned_scan_plain(qt, xt, add, alpha, bin_size=bin_size,
+                               packed=packed)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_scan_on_the_cuda_cores_when_asked(dev, kind, packed):
+    """cores="cuda" runs the CUDA-core K1 at a shape the tensor cores would
+    take (how chip_smoke.py times the route before the redesign); it
+    agrees with plain as the default route does."""
+    n, B, bin_size = 4096, 300, 1024
+    q, x, add, alpha = (t.to(dev) if t is not None else None
+                        for t in _scan_inputs(n, 32, B, kind == "int8"))
+    if kind == "float16":
+        q, x = q.to(torch.float16), x.to(torch.float16)
+    before = st.launches_by_cores["binned_scan:cuda"]
+    got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed,
+                         cores="cuda")
+    torch.cuda.synchronize()
+    assert st.launches_by_cores["binned_scan:cuda"] == before + 1
+    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
+                               packed=packed)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
+                            packed=packed, rtol=1e-5)
     assert rep["ok"], rep
 
 
@@ -431,9 +524,14 @@ def test_shifted_scan_kernel_matches_plain(dev, d, metric, dtype, bin_size):
     q, x = (t.to(dev) for t in _shifted_inputs(8192, 8000, d, 300, metric,
                                                dtype))
     before = st.launches["shifted_scan"]
+    cores = st.shifted_cores(x.dtype, d + 4, bin_size)
+    assert cores == ("tensor" if bin_size == 1024 and dtype != torch.float32
+                     else "cuda")
+    on_route = st.launches_by_cores[f"shifted_scan:{cores}"]
     got = st.shifted_scan(q, x, bin_size=bin_size)
     torch.cuda.synchronize()
     assert st.launches["shifted_scan"] == before + 1
+    assert st.launches_by_cores[f"shifted_scan:{cores}"] == on_route + 1
     ref = st.shifted_scan_plain(q, x, bin_size=bin_size)
     assert got[0].shape == ref[0].shape == (300, 8192 // bin_size)
     rep = st.shifted_agreement(got, ref, q, x, bin_size=bin_size)
@@ -443,6 +541,59 @@ def test_shifted_scan_kernel_matches_plain(dev, d, metric, dtype, bin_size):
     real = -(-8000 // bin_size)
     assert (got[1][:, :real] < 8000).all()
     assert torch.isinf(got[0][:, real:]).all()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B", [1, 127, 1000])
+def test_shifted_tensor_scan_matches_plain(dev, d, metric, dtype, B):
+    """The tensor-core T3 at d_aug 20, 36, 68, 132 and 164 (the k8 tail at
+    36, 68, 132 and 164), batches off its query tile, and a last bin of
+    padding rows only (+inf, the bin's first row)."""
+    n_pad, n, bin_size = 8192, 7000, 1024
+    q, x = (t.to(dev) for t in _shifted_inputs(n_pad, n, d, B, metric,
+                                               dtype))
+    assert st.shifted_cores(x.dtype, d + 4, bin_size) == "tensor"
+    before = st.launches_by_cores["shifted_scan:tensor"]
+    got = st.shifted_scan(q, x, bin_size=bin_size)
+    torch.cuda.synchronize()
+    assert st.launches_by_cores["shifted_scan:tensor"] == before + 1
+    ref = st.shifted_scan_plain(q, x, bin_size=bin_size)
+    assert got[0].shape == ref[0].shape == (B, n_pad // bin_size)
+    rep = st.shifted_agreement(got, ref, q, x, bin_size=bin_size)
+    assert rep["ok"], rep
+    assert torch.isinf(got[0][:, -1]).all()
+    assert (got[1][:, -1] == n_pad - bin_size).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_shifted_scan_on_the_cuda_cores_when_asked(dev, dtype):
+    """cores="cuda" runs the CUDA-core T3 at d_aug 36, where the tensor
+    cores would run by default; it agrees with plain."""
+    q, x = (t.to(dev) for t in _shifted_inputs(8192, 7000, 32, 300, "l2",
+                                               dtype))
+    before = st.launches_by_cores["shifted_scan:cuda"]
+    got = st.shifted_scan(q, x, bin_size=1024, cores="cuda")
+    torch.cuda.synchronize()
+    assert st.launches_by_cores["shifted_scan:cuda"] == before + 1
+    ref = st.shifted_scan_plain(q, x, bin_size=1024)
+    rep = st.shifted_agreement(got, ref, q, x, bin_size=1024)
+    assert rep["ok"], rep
+
+
+def test_shifted_tensor_scan_ties_go_to_the_lower_row(dev):
+    """Small-integer rows stored many times: exact sums, so T3 gives
+    plain's keys exactly, ties to the lower row."""
+    rng = np.random.default_rng(13)
+    distinct = rng.integers(-3, 4, size=(8, 36)).astype(np.float32)
+    x = torch.from_numpy(distinct[rng.integers(0, 8, 4096)])
+    q = torch.from_numpy(rng.integers(-3, 4, size=(300, 36))
+                         .astype(np.float32))
+    x, q = x.to(dev, torch.bfloat16), q.to(dev, torch.bfloat16)
+    got = st.shifted_scan(q, x, bin_size=256)
+    ref = st.shifted_scan_plain(q, x, bin_size=256)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def test_shifted_scan_kernel_refuses_what_it_cannot_take(dev):

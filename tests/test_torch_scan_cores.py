@@ -1,0 +1,219 @@
+"""Which cores K1 (binned_scan) and T3 (shifted_scan) run on: the route
+functions ``scan_cores`` and ``shifted_cores`` give "tensor" for every shape
+of the main paths (the served bf16/fp16/int8 scans, the graph build's packed
+scan, the shifted search) and "cuda" for f32 and for bins the tensor-core
+kernels do not tile; T3's width check follows the route. The kernels
+themselves run only on the card (tests/test_torch_cuda_kernels.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+from gbnns_tpu_torch.build.knn_graph import fused_operands
+from gbnns_tpu_torch.kernels import scan_topk as st
+
+N_MAIN = 140_000      # large enough for the 1,024-row bins of the main paths
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=(N_MAIN, 32)).astype(np.float32)
+    return base
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_served_scans_take_the_tensor_cores(corpus, kind, packed):
+    idx = st.FusedScanIndex(corpus, scan_dtype=kind, packed=packed,
+                            device="cpu")
+    assert idx.bin_size == 1024 and idx.x_lo.shape[1] == 32
+    assert st.scan_cores(idx.x_lo.dtype, idx.x_lo.shape[1],
+                         idx.bin_size) == "tensor"
+    assert st.scan_cores(kind, 32, 1024) == "tensor"
+
+
+def test_graph_build_scan_takes_the_tensor_cores(corpus):
+    _, x, _, bin_size = fused_operands(corpus, 32, device="cpu")
+    assert bin_size == 1024 and x.dtype == torch.bfloat16
+    assert st.scan_cores(x.dtype, x.shape[1], bin_size) == "tensor"
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_shifted_search_takes_the_tensor_cores(corpus, kind, metric):
+    idx = st.FusedScanIndex(corpus, scan_dtype=kind, metric=metric,
+                            mode="shifted", device="cpu")
+    d_aug = idx.x_aug.shape[1]
+    assert d_aug == 36 and idx.bin_size == 1024
+    assert st.shifted_cores(idx.x_aug.dtype, d_aug, idx.bin_size) == "tensor"
+    assert st.shifted_cores(kind, 36) == "tensor"
+    assert st.check_shifted_width(idx.x_aug.dtype, d_aug,
+                                  idx.bin_size) == "tensor"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("bin_size", [16, 64, 96, 1024])
+def test_tensor_route_widths_and_bins(kind, d, bin_size):
+    assert st.scan_cores(kind, d, bin_size) == "tensor"
+    assert st.scan_cores(getattr(torch, kind), d, bin_size) == "tensor"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("bin_size", [8, 1024])
+def test_f32_scans_stay_on_the_cuda_cores(d, bin_size):
+    assert st.scan_cores(torch.float32, d, bin_size) == "cuda"
+    assert st.scan_cores("float32", d, bin_size) == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("bin_size", [8, 7, 100, 1000])
+def test_bins_off_the_row_tile_stay_on_the_cuda_cores(kind, bin_size):
+    assert bin_size % st.TC_ROW_TILE
+    assert st.scan_cores(kind, 32, bin_size) == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_widths_above_128_stay_on_the_cuda_cores(kind):
+    assert st.scan_cores(kind, 160, 1024) == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d_aug", [4, 20, 36, 44, 68, 132, 164, 260, 264])
+def test_shifted_tensor_route_takes_any_multiple_of_4(kind, d_aug):
+    assert st.shifted_cores(kind, d_aug) == "tensor"
+    assert st.check_shifted_width(getattr(torch, kind), d_aug) == "tensor"
+
+
+@pytest.mark.parametrize("d_aug", [20, 36, 68, 132])
+def test_shifted_f32_and_small_bins_stay_on_the_cuda_cores(d_aug):
+    assert st.shifted_cores(torch.float32, d_aug) == "cuda"
+    assert st.shifted_cores(torch.bfloat16, d_aug, bin_size=8) == "cuda"
+    assert st.check_shifted_width(torch.float32, d_aug) == "cuda"
+
+
+@pytest.mark.parametrize("kind,d_aug,bin_size", [
+    (torch.float32, 164, 1024),    # f32 runs the CUDA-core widths only
+    (torch.bfloat16, 34, 1024),    # not a multiple of 4
+    (torch.bfloat16, 268, 1024),   # past the register budget
+    (torch.float16, 164, 8),       # a bin under the row tile: CUDA cores
+])
+def test_shifted_width_check_refuses(kind, d_aug, bin_size):
+    with pytest.raises(ValueError, match="d_aug in"):
+        st.check_shifted_width(kind, d_aug, bin_size)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
+@pytest.mark.parametrize("cores", [None, "tensor", "cuda"])
+def test_a_route_asked_for_gives_the_same_scan(kind, cores):
+    """``cores`` names a route (as chip_smoke.py does to time the CUDA-core
+    kernel); on the CPU every route is the plain scan."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(256, 32)).astype(np.float32))
+    alpha = None
+    if kind == "int8":
+        x = (x * 20).round().to(torch.int8)
+        alpha = torch.full((5,), -2.0)
+    else:
+        x = x.to(getattr(torch, kind))
+    add = torch.zeros(256)
+    got = st.binned_scan(x[:5], x, add, alpha, bin_size=64, cores=cores)
+    ref = st.binned_scan_plain(x[:5], x, add, alpha, bin_size=64)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind,d,bin_size,cores", [
+    (torch.float32, 32, 1024, "tensor"),   # f32 has no tensor-core kernel
+    (torch.bfloat16, 32, 8, "tensor"),     # nor a bin under the row tile
+    (torch.bfloat16, 160, 1024, "tensor"),  # nor d > 128
+    (torch.bfloat16, 32, 1024, "gpu"),     # not a route
+])
+def test_a_route_the_kernel_lacks_is_refused(kind, d, bin_size, cores):
+    x = torch.zeros((2 * bin_size, d), dtype=kind)
+    with pytest.raises(ValueError, match="tensor-core kernel|cores is"):
+        st.binned_scan(x[:3], x, torch.zeros(2 * bin_size),
+                       bin_size=bin_size, cores=cores)
+
+
+@pytest.mark.parametrize("kind,d_aug,cores,want", [
+    (torch.bfloat16, 36, "cuda", "cuda"),
+    (torch.float16, 132, "cuda", "cuda"),
+    (torch.bfloat16, 164, "tensor", "tensor"),
+    (torch.bfloat16, 164, "cuda", None),   # the CUDA cores' widths only
+    (torch.float32, 36, "tensor", None),   # f32 has no tensor-core kernel
+])
+def test_shifted_route_asked_for(kind, d_aug, cores, want):
+    if want is None:
+        with pytest.raises(ValueError, match="d_aug in|tensor-core kernel"):
+            st.check_shifted_width(kind, d_aug, 1024, cores)
+    else:
+        assert st.check_shifted_width(kind, d_aug, 1024, cores) == want
+
+
+@pytest.mark.parametrize("kind,cores", [(torch.float32, "tensor"),
+                                        (torch.bfloat16, "gpu")])
+def test_shifted_scan_refuses_a_route_it_lacks(kind, cores):
+    q = torch.zeros((3, 36), dtype=kind)
+    with pytest.raises(ValueError, match="tensor-core kernel|cores is"):
+        st.shifted_scan(q, torch.zeros((64, 36), dtype=kind), bin_size=64,
+                        cores=cores)
+
+
+def test_shifted_scan_still_refuses_int8_and_a_mismatch():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(256, 164)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(9, 164)).astype(np.float32))
+    with pytest.raises(TypeError, match="int8"):
+        st.shifted_scan(q, x.to(torch.int8), bin_size=64)
+    with pytest.raises(ValueError, match="augment mismatch"):
+        st.shifted_scan(q[:, :160], x.to(torch.bfloat16), bin_size=64)
+    vals, ids = st.shifted_scan(q, x.to(torch.bfloat16), bin_size=64)
+    assert vals.shape == ids.shape == (9, 4)
+
+
+def test_wide_shifted_index_routes_to_the_tensor_cores():
+    """A reduced width above 128 (160: d_aug 164), refused on the card
+    before the tensor-core T3, now has a kernel; on the CPU its search is
+    the plain scan's."""
+    rng = np.random.default_rng(5)
+    base = rng.normal(size=(3000, 160)).astype(np.float32)
+    idx = st.FusedScanIndex(base, mode="shifted", chunk=1024, device="cpu")
+    assert idx.x_aug.shape[1] == 164
+    assert st.check_shifted_width(idx.x_aug.dtype, 164,
+                                  idx.bin_size) == "tensor"
+    ids, _ = idx.search(base[:20], k=1, c=16)
+    assert (ids[:, 0].numpy() == np.arange(20)).all()
+
+
+@pytest.mark.parametrize("acc", [-(1 << 22), -(1 << 22) + 1, -16129 * 256,
+                                 -1, 0, 1, 12345, 16129 * 256, (1 << 22) - 1,
+                                 1 << 22])
+def test_int8_exact_convert(acc):
+    """The tensor-core int8 scan starts its int32 sums at the bits of
+    1.5 * 2^23 and reads the result as f32 less 1.5 * 2^23: exact for
+    |acc| <= 2^22, which every d <= 256 meets (|x|, |q| <= 128)."""
+    bits = np.array([acc + 0x4B400000], dtype=np.int32)
+    got = bits.view(np.float32)[0] - np.float32(12582912.0)
+    assert got == np.float32(acc)
+    assert max(st.SCAN_WIDTHS) * 128 * 128 <= 1 << 22
+
+
+def test_reset_sets_the_route_counts_to_zero():
+    st.launches_by_cores.count("binned_scan:tensor")
+    st.launches["binned_scan"] += 1
+    st.reset_launches()
+    assert not any(st.launches_by_cores.values())
+    assert not any(st.launches.values())
+    assert set(st.launches_by_cores) == {
+        "binned_scan:tensor", "binned_scan:cuda", "shifted_scan:tensor",
+        "shifted_scan:cuda"}
+
+
+def test_cpu_scans_count_no_launch():
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(256, 32)).astype(np.float32))
+    st.reset_launches()
+    st.binned_scan(x[:5].to(torch.bfloat16), x.to(torch.bfloat16),
+                   torch.zeros(256), bin_size=64)
+    assert not any(st.launches_by_cores.values())
