@@ -43,15 +43,18 @@ each printing its wall time:
 6. the gated scan: GatedScanIndex at its defaults (fine 32, m 16, sub
    1024, chunk 16384, tq 512, seed 0) with its build seconds (k-means,
    assignment, packing, upload) and stats; T4 gated_topm against its plain
-   version on all queries planned at probes 16 (values within SCAN_RTOL
-   plus one key quantum, ids equal except at counted near-ties), with its
-   time, the plain version's, the bound from the run's kept cells and the
-   full bf16 matmul as a yardstick; then probes 4, 8, 16, 32 at c = 32,
-   each search of all queries with the launch counts set to 0 before and
-   read after (one T4 launch a search), R@1, R@10, the kept-cell fraction
-   and QPS (median of ten synchronized searches); R@10 must not fall as
-   probes grows (within tests/test_gated.py's slack) and reach 0.95 at
-   probes 32;
+   version on all queries planned at probes 16, on the route gated_cores
+   gives it (tensor cores for bf16 at the index's geometry; values within
+   SCAN_RTOL plus one key quantum, ids equal except at counted
+   near-ties), with its time, the CUDA-core kernel's on the same operands
+   (the only route before the tensor-core redesign), the plain version's,
+   the bound from the run's kept cells and the full bf16 matmul as a
+   yardstick; then probes 4, 8, 16, 32 at c = 32, each search of all
+   queries with the launch counts set to 0 before and read after (one T4
+   launch a search, on the tensor cores), R@1, R@10, the kept-cell
+   fraction, QPS (median of ten synchronized searches) and T4's time on
+   both routes; R@10 must not fall as probes grows (within
+   tests/test_gated.py's slack) and reach 0.95 at probes 32;
 7. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
@@ -259,7 +262,7 @@ def route_counts(st, kernel: str) -> dict:
 
 def main_path_route(records, name: str, kernel: str, cores: str,
                     counts: dict, device, what: str) -> None:
-    """Record the route ``cores`` of a main path's K1 or T3 and its launches
+    """Record the route ``cores`` of a main path's K1, T3 or T4 and its launches
     by route (``counts``, read after the run); on the card every launch
     must have taken the tensor cores."""
     records.setdefault(name, {}).update(cores=cores,
@@ -785,40 +788,51 @@ def _gated_operands(idx, ql, probes: int):
 
 
 def gated_check(idx, ql, records) -> None:
-    """T4 against its plain version on all queries planned at probes 16,
-    with its time, the plain version's, its bound from this run's kept
-    cells and the full bf16 matmul at this shape as a yardstick."""
+    """T4 against its plain version on all queries planned at probes 16, on
+    the route ``gated_cores`` gives it (the launch is counted there), with
+    its time, the CUDA-core kernel's on the same operands (``earlier_ms``),
+    the plain version's, its bound from this run's kept cells and the full
+    bf16 matmul at this shape as a yardstick."""
     import torch
 
     from gbnns_tpu_torch.kernels import scan_topk as st
 
     args, kw, b_ms, b_by, cells, n_cells, chunks = _gated_operands(idx, ql,
                                                                    16)
+    q_scan = args[0]
+    cores = st.gated_cores(idx.x_lo.dtype, q_scan.shape[1], fine=idx.fine,
+                           sub=idx.sub, tq=kw["tq"])
+    before = route_counts(st, "gated_topm")[cores]
     got = st.gated_topm_scan(*args, **kw)
     ref = st.gated_topm_scan_plain(*args, **kw)
     torch.cuda.synchronize()
+    if q_scan.device.type == "cuda":
+        check(route_counts(st, "gated_topm")[cores] == before + 1,
+              f"T4 did not launch on the {cores} cores")
     rep = st.gated_agreement(got, ref, *args[:3], fine=idx.fine, sub=idx.sub,
                              chunk=idx.chunk, rtol=SCAN_RTOL)
-    say(f"T4 gated_topm vs plain (probes 16): {rep}")
+    say(f"T4 gated_topm vs plain (probes 16) on the {cores} cores: {rep}")
     check(rep["ok"], "T4 disagrees with its plain version")
     del got, ref
     ms = time_ms(lambda: st.gated_topm_scan(*args, **kw))
+    earlier_ms = (ms if cores == "cuda" else time_ms(
+        lambda: st.gated_topm_scan(*args, **kw, cores="cuda")))
     plain_ms = time_ms(lambda: st.gated_topm_scan_plain(*args, **kw), 2)
-    q_scan = args[0]
     yard_ms = time_ms(lambda: torch.matmul(idx.x_lo, q_scan.T), 3)
     torch.cuda.empty_cache()
     say(f"T4 [B={q_scan.shape[0]} n_pad={idx.x_lo.shape[0]} "
         f"d={q_scan.shape[1]} tq={kw['tq']}, kept {cells}/{n_cells} cells, "
-        f"{chunks}/{idx.n_chunks} chunks]: {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); library: none "
-        f"(no PyTorch call computes a gated top-m), yardstick: the full "
-        f"bf16 matmul at this shape {yard_ms:.3f} ms")
+        f"{chunks}/{idx.n_chunks} chunks] on the {cores} cores: {ms:.3f} ms "
+        f"(CUDA-core kernel {earlier_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
+        f"computes a gated top-m), yardstick: the full bf16 matmul at this "
+        f"shape {yard_ms:.3f} ms")
     records["gated_topm"] = {
         **dict(name="gated_topm", route="cuda", source=GATED_SOURCE,
                replaces=REPLACES["gated_topm"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               yardstick_ms=yard_ms),
+               yardstick_ms=yard_ms, cores=cores, earlier_ms=earlier_ms),
         **records.get("gated_topm", {})}
 
 
@@ -847,6 +861,9 @@ def gated_scan(base, query, base_lo, gt, trained, device, records,
     ql = projector(trained)(qf)
     if device.type == "cuda":
         gated_check(idx, ql, records)
+    tq = idx.plan(ql)[2]    # the plan's query tile: B's, whatever probes
+    cores = st.gated_cores(idx.x_lo.dtype, idx.x_lo.shape[1], fine=idx.fine,
+                           sub=idx.sub, tq=tq)
     outs = []
     for probes in GATED_PROBES:
         st.reset_launches()
@@ -854,6 +871,11 @@ def gated_scan(base, query, base_lo, gt, trained, device, records,
                                   return_kept_frac=True)
         ids = ids.cpu().numpy()
         launches = st.launches["gated_topm"]
+        # every search's T4 launch on the tensor cores; probes 16's counts
+        # go into the record beside its launches
+        main_path_route(records if probes == 16 else {}, "gated_topm",
+                        "gated_topm", cores, route_counts(st, "gated_topm"),
+                        device, f"gated probes={probes}")
         r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
         check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
               and ids.max() < base.shape[0], "gated result ids out of range")
@@ -879,9 +901,12 @@ def gated_scan(base, query, base_lo, gt, trained, device, records,
             args, kw, b_ms, _, cells, n_cells, _ = _gated_operands(
                 idx, ql, probes)
             out["t4_ms"] = time_ms(lambda: st.gated_topm_scan(*args, **kw))
+            out["t4_earlier_ms"] = time_ms(
+                lambda: st.gated_topm_scan(*args, **kw, cores="cuda"))
             out["t4_bound_ms"] = b_ms
-            say(f"  T4 at probes={probes} ({cells}/{n_cells} cells): "
-                f"{out['t4_ms']:.3f} ms, bound {b_ms:.4f} ms")
+            say(f"  T4 at probes={probes} ({cells}/{n_cells} cells) on the "
+                f"{cores} cores: {out['t4_ms']:.3f} ms (CUDA-core kernel "
+                f"{out['t4_earlier_ms']:.3f} ms), bound {b_ms:.4f} ms")
             del args
         if probes == 16:
             records.setdefault("gated_topm", {})["launches"] = launches

@@ -32,10 +32,10 @@ K2; ``csrc/shifted_scan.cu``: T3; ``csrc/gated_topm.cu``: T4) for CUDA
 tensors and takes its plain PyTorch version (``binned_scan_plain``,
 ``merge_topc_plain``, ``shifted_scan_plain``, ``gated_topm_scan_plain``)
 only for CPU tensors. ``launches`` counts the kernel launches of each
-wrapper. K1 and T3 run on the tensor cores or on the CUDA cores, as
-``scan_cores`` and ``shifted_cores`` decide from the kind and the shape
-(there is no fallback from one to the other); ``launches_by_cores`` counts
-their launches by route.
+wrapper. K1, T3 and T4 run on the tensor cores or on the CUDA cores, as
+``scan_cores``, ``shifted_cores`` and ``gated_cores`` decide from the kind
+and the shape (there is no fallback from one to the other);
+``launches_by_cores`` counts their launches by route.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ launches = _build.LaunchCounts("binned_scan", "merge_topc", "shifted_scan",
                                "gated_topm")
 launches_by_cores = _build.LaunchCounts(
     "binned_scan:tensor", "binned_scan:cuda", "shifted_scan:tensor",
-    "shifted_scan:cuda")
+    "shifted_scan:cuda", "gated_topm:tensor", "gated_topm:cuda")
 
 
 def reset_launches() -> None:
@@ -104,6 +104,28 @@ def shifted_cores(kind, d_aug: int, bin_size: int = 1024) -> str:
     if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
             and d_aug % 4 == 0 and 0 < d_aug <= SHIFTED_TC_MAX_WIDTH
             and bin_size % TC_ROW_TILE == 0):
+        return "tensor"
+    return "cuda"
+
+
+def tc_warp_queries(d: int) -> int:
+    """Queries a warp of a tensor-core scan holds at width ``d`` (bf16 or
+    fp16 rows of d/16 k-slabs): 8 per n-tile, 64 up to d = 32, then 32 and
+    16 (``TcShape::NT`` in ``csrc/common.cuh``)."""
+    ks = d // 16
+    return 8 * (8 if ks <= 2 else 16 // ks)
+
+
+def gated_cores(kind, d: int, *, fine: int, sub: int, tq: int) -> str:
+    """Which T4 kernel a gated scan launches: "tensor" (bf16 and fp16 at d
+    in ``SCAN_WIDTHS``, ``fine`` a multiple of ``TC_ROW_TILE`` and ``tq`` a
+    multiple of a warp's queries, ``tc_warp_queries``, so that no warp
+    straddles two mask tiles) or "cuda" (f32, whose tensor-core form TF32
+    would change the result; fine 4 and 8; a tq that splits a warp).
+    Any ``sub`` (a multiple of ``fine``) serves both."""
+    if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
+            and d in SCAN_WIDTHS and fine % TC_ROW_TILE == 0
+            and tq % tc_warp_queries(d) == 0):
         return "tensor"
     return "cuda"
 
@@ -156,7 +178,7 @@ def _gated_library():
     lib = _build.load("gated_topm")
     if not getattr(lib, "_gbnns_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gbnns_gated_topm.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p]
+        lib.gbnns_gated_topm.argtypes = [p, p, p, p, p, p] + [i] * 10 + [p]
         lib.gbnns_gated_topm.restype = i
         lib._gbnns_bound = True
     return lib
@@ -573,7 +595,8 @@ def gated_topm_scan_plain(q, x, addvec, tile_mask, *, metric: str = "l2",
 
 def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
                     fine: int = 128, m: int = 16, sub: int = 1024,
-                    chunk: int = 16384, tq: int = 1024):
+                    chunk: int = 16384, tq: int = 1024,
+                    cores: str | None = None):
     """Cluster-gated per-chunk top-m candidates: ``(vals (B, m*n_chunks)
     f32, ids (B, m*n_chunks) int32)``, column ``j*m + t`` holding chunk j's
     t-th winner (a corpus position), ascending by the key; a skipped cell
@@ -587,7 +610,10 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
     ``j * b_tiles + i`` gating corpus chunk j against query tile i. Values
     come back quantized to 2^(log2 max(sub, chunk/fine) - 23) relative.
     CPU tensors take ``gated_topm_scan_plain``; CUDA tensors launch T4
-    (d in ``SCAN_WIDTHS``, m <= ``GATED_MAX_M``)."""
+    (d in ``SCAN_WIDTHS``, m <= ``GATED_MAX_M``) on the cores
+    ``gated_cores`` names, or on ``cores`` as ``binned_scan`` takes it."""
+    route = _route(cores, gated_cores(x.dtype, q.shape[1], fine=fine,
+                                      sub=sub, tq=tq), "gated_topm_scan")
     if x.device.type == "cpu":
         return gated_topm_scan_plain(q, x, addvec, tile_mask, metric=metric,
                                      fine=fine, m=m, sub=sub, chunk=chunk,
@@ -618,9 +644,11 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
         err = lib.gbnns_gated_topm(
             q.data_ptr(), x.data_ptr(), addvec.data_ptr(),
             tile_mask.data_ptr(), vals.data_ptr(), ids.data_ptr(), B,
-            x.shape[0], d, chunk, tq, fine, sub, m, _KINDS[x.dtype], stream)
+            x.shape[0], d, chunk, tq, fine, sub, m, _KINDS[x.dtype],
+            int(route == "tensor"), stream)
     _build.check(lib, err, "gated_topm")
     launches.count("gated_topm")
+    launches_by_cores.count(f"gated_topm:{route}")
     return vals.T, ids.T
 
 

@@ -54,17 +54,21 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
                             "row_gather", "gated_topm", "shifted_scan",
                             "knn_topk"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
-    # K1 and T3 on the main paths: their route and their launches by route
-    # (none on the CPU; the timed kernel checks, earlier_ms among them,
-    # need the card)
+    # K1, T3 and T4 on the main paths: their route and their launches by
+    # route (none on the CPU; the timed kernel checks, earlier_ms among
+    # them, need the card)
     for name in ("binned_scan[bfloat16]", "binned_scan[int8]",
-                 "binned_scan[bfloat16,packed]", "shifted_scan"):
+                 "binned_scan[bfloat16,packed]", "shifted_scan",
+                 "gated_topm"):
         rec = records[name]
         assert rec["cores"] == "tensor", name
         assert rec["launches_by_cores"] == {"tensor": 0, "cuda": 0}, name
     for what in ("serve fused bfloat16", "serve fused int8", "graph build",
                  "fused shifted"):
         assert f"{what}: " in out and "routed to the tensor cores" in out
+    for probes in (4, 8, 16, 32):
+        assert (f"gated probes={probes}: gated_topm routed to the tensor "
+                f"cores") in out
     assert set(threading.enumerate()) <= before
 
 
@@ -163,6 +167,7 @@ def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):
     assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
     assert rec["library_ms"] is None and rec["yardstick_ms"] == 1.0
     assert rec["launches"] == 1        # the main path's count is kept
+    assert rec["cores"] == "cuda"      # fine 4: the CUDA-core route
     assert set(rec) >= {"name", "route", "source", "replaces", "launches",
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms"}

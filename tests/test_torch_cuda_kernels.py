@@ -418,7 +418,7 @@ def _gated_inputs(n_pad, d, B, tq, chunk, dtype, mask, seed=0):
 # (n_pad, d, B, fine, m, sub, chunk, tq): the CPU tests' geometry (chunk /
 # fine = 128 > sub, so km comes from chunk / fine), GatedScanIndex's
 # defaults (km from sub), a tile of 64 queries (two tiles share a block),
-# a 32-winner list and the other widths
+# a 32-winner list and the other widths; each on the CUDA cores
 GATED_SHAPES = [
     (4096, 32, 192, 4, 16, 64, 512, 64),
     (65536, 32, 1024, 32, 16, 1024, 16384, 512),
@@ -426,22 +426,53 @@ GATED_SHAPES = [
     (8192, 64, 256, 16, 8, 128, 1024, 256),
     (4096, 128, 256, 4, 16, 64, 512, 128),
 ]
+# the tensor-core route: the index's geometry; fine 16 with a tile of one
+# warp's 64 queries (the 8 warps of a block read 8 mask entries); m 32; B
+# not a multiple of a block's 512 queries; d 16, 64 and 128 (n-tiles 8, 4
+# and 2 a warp, blocks of 512, 256 and 128 queries), each with a partial
+# last block
+GATED_TC_SHAPES = [
+    (65536, 32, 1024, 32, 16, 1024, 16384, 512),
+    (8192, 32, 512, 16, 16, 256, 2048, 64),
+    (16384, 32, 512, 32, 32, 1024, 4096, 128),
+    (8192, 32, 576, 32, 16, 512, 2048, 64),
+    (8192, 16, 640, 16, 8, 128, 1024, 128),
+    (8192, 64, 288, 32, 16, 256, 2048, 32),
+    (4096, 128, 144, 16, 16, 64, 512, 16),
+]
+_DTYPE_IDS = {torch.bfloat16: "bf16", torch.float16: "fp16",
+              torch.float32: "f32"}
+GATED_CASES = ([(s, dt, "cuda") for s in GATED_SHAPES
+                for dt in (torch.bfloat16, torch.float16, torch.float32)]
+               + [(s, dt, "tensor") for s in GATED_TC_SHAPES
+                  for dt in (torch.bfloat16, torch.float16)])
 
 
-@pytest.mark.parametrize("shape", GATED_SHAPES,
-                         ids=["-".join(map(str, s)) for s in GATED_SHAPES])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
-                                   torch.float32])
+def _gated_scan(q, x, add, tile_mask, cores, **kw):
+    """T4 on the route ``cores`` (the tensor cores only where
+    ``gated_cores`` gives them), its launch counted on that route."""
+    if cores == "tensor":
+        assert st.gated_cores(x.dtype, x.shape[1], fine=kw["fine"],
+                              sub=kw["sub"], tq=kw["tq"]) == "tensor"
+    before = st.launches["gated_topm"]
+    on_route = st.launches_by_cores[f"gated_topm:{cores}"]
+    got = st.gated_topm_scan(q, x, add, tile_mask, cores=cores, **kw)
+    torch.cuda.synchronize()
+    assert st.launches["gated_topm"] == before + 1
+    assert st.launches_by_cores[f"gated_topm:{cores}"] == on_route + 1
+    return got
+
+
+@pytest.mark.parametrize("shape,dtype,cores", GATED_CASES, ids=[
+    "-".join(map(str, s)) + f"-{_DTYPE_IDS[dt]}-{c}"
+    for s, dt, c in GATED_CASES])
 @pytest.mark.parametrize("mask", ["all", "none", "random"])
-def test_gated_topm_kernel_matches_plain(dev, shape, dtype, mask):
+def test_gated_topm_kernel_matches_plain(dev, shape, dtype, cores, mask):
     n_pad, d, B, fine, m, sub, chunk, tq = shape
     q, x, add, tile_mask = (t.to(dev) for t in _gated_inputs(
         n_pad, d, B, tq, chunk, dtype, mask))
     kw = dict(fine=fine, m=m, sub=sub, chunk=chunk, tq=tq)
-    before = st.launches["gated_topm"]
-    got = st.gated_topm_scan(q, x, add, tile_mask, **kw)
-    torch.cuda.synchronize()
-    assert st.launches["gated_topm"] == before + 1
+    got = _gated_scan(q, x, add, tile_mask, cores, **kw)
     ref = st.gated_topm_scan_plain(q, x, add, tile_mask, **kw)
     assert got[0].shape == ref[0].shape == (B, m * (n_pad // chunk))
     rep = st.gated_agreement(got, ref, q, x, add, fine=fine, sub=sub,
@@ -451,6 +482,52 @@ def test_gated_topm_kernel_matches_plain(dev, shape, dtype, mask):
     assert torch.equal(got[1] < 0, skipped)
     if mask == "none":
         assert skipped.all() and torch.isinf(got[0]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gated_tensor_scan_padding_chunk(dev, dtype):
+    """The last chunk holds padding rows only (addvec +inf): its winners
+    are +inf at the first row of each of the first m fine bins, as plain
+    gives, and never beat a real row elsewhere."""
+    n_pad, d, B, fine, m, sub, chunk, tq = 8192, 32, 512, 32, 16, 512, \
+        2048, 128
+    q, x, add, tile_mask = (t.to(dev) for t in _gated_inputs(
+        n_pad, d, B, tq, chunk, dtype, "all", seed=4))
+    add[-chunk:] = float("inf")
+    kw = dict(fine=fine, m=m, sub=sub, chunk=chunk, tq=tq)
+    got = _gated_scan(q, x, add, tile_mask, "tensor", **kw)
+    ref = st.gated_topm_scan_plain(q, x, add, tile_mask, **kw)
+    rep = st.gated_agreement(got, ref, q, x, add, fine=fine, sub=sub,
+                             chunk=chunk)
+    assert rep["ok"], rep
+    last = slice((n_pad // chunk - 1) * m, None)
+    assert torch.isinf(got[0][:, last]).all()
+    assert torch.equal(got[1][:, last], ref[1][:, last])
+    assert torch.isfinite(got[0][:, :last.start]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_gated_tensor_scan_ties_match_plain_exactly(dev, dtype, d):
+    """Eight distinct small-integer rows, each stored many times at
+    shuffled positions: every sum is exact in both versions, so the kernel
+    must give plain's values and, among tied copies, its rows (the lower
+    row in a fine group, the lower fine bin among groups) exactly."""
+    rng = np.random.default_rng(d)
+    n_pad, B, fine, m, sub, chunk = 8192, 256, 16, 16, 256, 2048
+    tq = st.tc_warp_queries(d)
+    distinct = rng.integers(-3, 4, size=(8, d)).astype(np.float32)
+    x = distinct[rng.integers(0, 8, n_pad)]
+    q = rng.integers(-3, 4, size=(B, d)).astype(np.float32)
+    add = torch.from_numpy((x ** 2).sum(-1).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(
+        (rng.random((n_pad // chunk) * (B // tq)) < 0.7).astype(np.int32))
+    qt = torch.from_numpy(q).to(dtype).to(dev)
+    xt = torch.from_numpy(-2 * x).to(dtype).to(dev)
+    kw = dict(fine=fine, m=m, sub=sub, chunk=chunk, tq=tq)
+    got = _gated_scan(qt, xt, add, keep.to(dev), "tensor", **kw)
+    ref = st.gated_topm_scan_plain(qt, xt, add, keep.to(dev), **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):
@@ -467,12 +544,18 @@ def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):
                            tile_mask, m=16, **kw)
     with pytest.raises(ValueError, match="pad B"):
         st.gated_topm_scan(q[:100], x, add, tile_mask, m=16, **kw)
+    with pytest.raises(ValueError, match="tensor-core kernel"):  # fine 4
+        st.gated_topm_scan(q, x, add, tile_mask, m=16, cores="tensor", **kw)
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        st.gated_topm_scan(q.float(), x.float(), add, tile_mask, m=16,
+                           cores="tensor", **{**kw, "fine": 16})
     assert st.launches["gated_topm"] == before
 
 
 def test_gated_index_on_the_card(dev, monkeypatch):
-    """GatedScanIndex on the card: one T4 launch a search, answers as with
-    the plain scan on the same index, recall as the CPU tests ask."""
+    """GatedScanIndex on the card: one T4 launch a search, on the tensor
+    cores, answers as with the plain scan on the same index, recall as the
+    CPU tests ask."""
     from gbnns_tpu_torch.eval.recall import exact_ground_truth, recall_at_k
     from gbnns_tpu_torch.search import gated
     from gbnns_tpu_torch.search.gated import GatedScanIndex
@@ -488,10 +571,12 @@ def test_gated_index_on_the_card(dev, monkeypatch):
     got = {}
     for probes in (4, 32):
         before = st.launches["gated_topm"]
+        on_tc = st.launches_by_cores["gated_topm:tensor"]
         ids, dists, kept = idx.search(query, k=10, probes=probes,
                                       return_kept_frac=True)
         torch.cuda.synchronize()
         assert st.launches["gated_topm"] == before + 1
+        assert st.launches_by_cores["gated_topm:tensor"] == on_tc + 1
         assert torch.isfinite(dists).all() and 0 < kept <= 1
         got[probes] = ids.cpu().numpy()
     assert recall_at_k(got[32], gt, 10) >= 0.93

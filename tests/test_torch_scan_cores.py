@@ -1,9 +1,13 @@
-"""Which cores K1 (binned_scan) and T3 (shifted_scan) run on: the route
-functions ``scan_cores`` and ``shifted_cores`` give "tensor" for every shape
-of the main paths (the served bf16/fp16/int8 scans, the graph build's packed
-scan, the shifted search) and "cuda" for f32 and for bins the tensor-core
-kernels do not tile; T3's width check follows the route. The kernels
-themselves run only on the card (tests/test_torch_cuda_kernels.py)."""
+"""Which cores K1 (binned_scan), T3 (shifted_scan) and T4 (gated_topm_scan)
+run on: the route functions ``scan_cores``, ``shifted_cores`` and
+``gated_cores`` give "tensor" for every shape of the main paths (the served
+bf16/fp16/int8 scans, the graph build's packed scan, the shifted search,
+the gated search at GatedScanIndex's defaults) and "cuda" for f32 and for
+shapes the tensor-core kernels do not tile; T3's width check follows the
+route. The kernels themselves run only on the card
+(tests/test_torch_cuda_kernels.py)."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -207,7 +211,7 @@ def test_reset_sets_the_route_counts_to_zero():
     assert not any(st.launches.values())
     assert set(st.launches_by_cores) == {
         "binned_scan:tensor", "binned_scan:cuda", "shifted_scan:tensor",
-        "shifted_scan:cuda"}
+        "shifted_scan:cuda", "gated_topm:tensor", "gated_topm:cuda"}
 
 
 def test_cpu_scans_count_no_launch():
@@ -217,3 +221,114 @@ def test_cpu_scans_count_no_launch():
     st.binned_scan(x[:5].to(torch.bfloat16), x.to(torch.bfloat16),
                    torch.zeros(256), bin_size=64)
     assert not any(st.launches_by_cores.values())
+
+
+# ---- T4: gated_cores and gated_topm_scan(cores=)
+
+def _gated_index(dtype="bfloat16", **kw):
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(4096, 32)).astype(np.float32)
+    return base, GatedScanIndex(base, scan_dtype=dtype, kmeans_sample=None,
+                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_gated_defaults_take_the_tensor_cores(dtype):
+    """GatedScanIndex's defaults (fine 32, sub 1024, tq 512) and the tq its
+    plan gives on the card (B rounded up to 128, at most 512)."""
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    _, idx = _gated_index(dtype, chunk=1024, sub=512)
+    defaults = {k: v.default for k, v in inspect.signature(
+        GatedScanIndex).parameters.items()}
+    assert (defaults["fine"], defaults["sub"], defaults["tq"],
+            defaults["scan_dtype"]) == (32, 1024, 512, "bfloat16")
+    assert idx.x_lo.dtype == getattr(torch, dtype)
+    for tq in (128, 256, 384, 512):
+        assert st.gated_cores(idx.x_lo.dtype, 32, fine=32, sub=1024,
+                              tq=tq) == "tensor"
+    assert st.gated_cores(dtype, idx.x_lo.shape[1], fine=idx.fine,
+                          sub=idx.sub, tq=128) == "tensor"
+
+
+@pytest.mark.parametrize("d,warp", [(16, 64), (32, 64), (64, 32),
+                                    (128, 16)])
+@pytest.mark.parametrize("fine", [16, 32, 128])
+def test_gated_tensor_route_widths(d, warp, fine):
+    assert st.tc_warp_queries(d) == warp
+    for kind in ("bfloat16", "float16", torch.bfloat16, torch.float16):
+        assert st.gated_cores(kind, d, fine=fine, sub=1024,
+                              tq=warp) == "tensor"
+
+
+@pytest.mark.parametrize("kind,d,fine,tq", [
+    (torch.float32, 32, 32, 512),    # f32: TF32 would change the result
+    ("float32", 16, 16, 64),
+    (torch.bfloat16, 32, 4, 512),    # fine groups under the row tile
+    (torch.float16, 32, 8, 512),
+    (torch.bfloat16, 32, 32, 32),    # a tile of half a warp's queries
+    (torch.bfloat16, 32, 32, 96),    # a tile that splits a warp
+    (torch.float16, 64, 32, 48),
+    (torch.bfloat16, 128, 16, 8),
+    (torch.bfloat16, 24, 32, 512),   # no kernel width
+])
+def test_gated_shapes_that_stay_on_the_cuda_cores(kind, d, fine, tq):
+    assert st.gated_cores(kind, d, fine=fine, sub=1024, tq=tq) == "cuda"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("cores", [None, "tensor", "cuda"])
+def test_a_gated_route_asked_for_gives_the_plain_scan(dtype, cores):
+    """``cores`` names a route (chip_smoke.py times the CUDA-core T4 so);
+    on the CPU every route is the plain scan. f32 has no tensor route."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(4096, 32)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(128, 32)).astype(np.float32))
+    add = (x ** 2).sum(-1)
+    keep = torch.from_numpy((rng.random(8 * 2) < 0.5).astype(np.int32))
+    kw = dict(fine=32, m=16, sub=256, chunk=512, tq=64)
+    x, q = (-2 * x).to(dtype), q.to(dtype)
+    ref = st.gated_topm_scan_plain(q, x, add, keep, **kw)
+    if dtype == torch.float32 and cores == "tensor":
+        with pytest.raises(ValueError, match="tensor-core kernel"):
+            st.gated_topm_scan(q, x, add, keep, cores=cores, **kw)
+        return
+    st.reset_launches()
+    got = st.gated_topm_scan(q, x, add, keep, cores=cores, **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert not any(st.launches_by_cores.values())   # CPU: no launch
+
+
+@pytest.mark.parametrize("kind,fine,tq,cores", [
+    (torch.float32, 32, 64, "tensor"),    # f32 has no tensor-core kernel
+    (torch.bfloat16, 8, 64, "tensor"),    # nor fine groups under 16 rows
+    (torch.bfloat16, 32, 32, "tensor"),   # nor a tile that splits a warp
+    (torch.bfloat16, 32, 64, "gpu"),      # not a route
+    (torch.bfloat16, 32, 64, "Tensor"),
+])
+def test_a_gated_route_the_kernel_lacks_is_refused(kind, fine, tq, cores):
+    x = torch.zeros((1024, 32), dtype=kind)
+    keep = torch.ones(2 * (128 // tq), dtype=torch.int32)
+    with pytest.raises(ValueError, match="tensor-core kernel|cores is"):
+        st.gated_topm_scan(x[:128], x, torch.zeros(1024), keep, fine=fine,
+                           m=4, sub=64, chunk=512, tq=tq, cores=cores)
+
+
+def test_gated_search_routes_its_scan(monkeypatch):
+    """GatedScanIndex.search hands T4 no route of its own: the wrapper takes
+    ``gated_cores``'s choice for the plan's tq."""
+    base, idx = _gated_index(chunk=1024, sub=512)
+    seen = []
+    real = st.gated_cores
+
+    def spy(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(st, "gated_cores", spy)
+    ids, _ = idx.search(base[:64], k=1, probes=4)
+    assert (ids[:, 0].numpy() == np.arange(64)).all()
+    assert seen == ["tensor"]   # the CPU plan's tq is 64: one warp's
