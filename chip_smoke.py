@@ -262,9 +262,9 @@ def route_counts(st, kernel: str) -> dict:
 
 def main_path_route(records, name: str, kernel: str, cores: str,
                     counts: dict, device, what: str) -> None:
-    """Record the route ``cores`` of a main path's K1, T3 or T4 and its launches
-    by route (``counts``, read after the run); on the card every launch
-    must have taken the tensor cores."""
+    """Record the route ``cores`` of a main path's K1, T3 or T4 and its
+    launches by route (``counts``, read after the run); on the card every
+    launch must have taken the tensor cores."""
     records.setdefault(name, {}).update(cores=cores,
                                         launches_by_cores=counts)
     say(f"{what}: {kernel} routed to the {cores} cores, launches by route "

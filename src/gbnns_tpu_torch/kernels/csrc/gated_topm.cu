@@ -287,7 +287,8 @@ gated_topm_tc_kernel(const void* __restrict__ q_ptr,
   // B and tq are multiples of kWarpQ: a warp's queries are all live or all
   // past B, and share one mask entry
   const bool live = qbase < B;
-  const bool keep = live && tile_mask[(long long)jc * b_tiles + qbase / tq] > 0;
+  const bool keep =
+      live && tile_mask[(long long)jc * b_tiles + qbase / tq] > 0;
 
   if (live && !keep)  // a skipped cell: +inf and -1
     for (int i = lane; i < m * kWarpQ; i += 32) {
