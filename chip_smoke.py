@@ -47,7 +47,8 @@ each printing its wall time:
    gives it (tensor cores for bf16 at the index's geometry; values within
    SCAN_RTOL plus one key quantum, ids equal except at counted
    near-ties), with its time, the CUDA-core kernel's on the same operands
-   (the only route before the tensor-core redesign), the plain version's,
+   (the only route before the tensor-core redesign; held against plain
+   the same way), the plain version's,
    the bound from the run's kept cells and the full bf16 matmul as a
    yardstick; then probes 4, 8, 16, 32 at c = 32, each search of all
    queries with the launch counts set to 0 before and read after (one T4
@@ -789,8 +790,9 @@ def _gated_operands(idx, ql, probes: int):
 
 def gated_check(idx, ql, records) -> None:
     """T4 against its plain version on all queries planned at probes 16, on
-    the route ``gated_cores`` gives it (the launch is counted there), with
-    its time, the CUDA-core kernel's on the same operands (``earlier_ms``),
+    the route ``gated_cores`` gives it (the launch is counted there) and on
+    the CUDA cores, with its time, the CUDA-core kernel's on the same
+    operands (``earlier_ms``, its error ``earlier_max_abs_err``),
     the plain version's, its bound from this run's kept cells and the full
     bf16 matmul at this shape as a yardstick."""
     import torch
@@ -801,7 +803,7 @@ def gated_check(idx, ql, records) -> None:
                                                                    16)
     q_scan = args[0]
     cores = st.gated_cores(idx.x_lo.dtype, q_scan.shape[1], fine=idx.fine,
-                           sub=idx.sub, tq=kw["tq"])
+                           tq=kw["tq"])
     before = route_counts(st, "gated_topm")[cores]
     got = st.gated_topm_scan(*args, **kw)
     ref = st.gated_topm_scan_plain(*args, **kw)
@@ -813,6 +815,16 @@ def gated_check(idx, ql, records) -> None:
                              chunk=idx.chunk, rtol=SCAN_RTOL)
     say(f"T4 gated_topm vs plain (probes 16) on the {cores} cores: {rep}")
     check(rep["ok"], "T4 disagrees with its plain version")
+    earlier_rep = rep
+    if cores != "cuda":     # the CUDA-core kernel, timed below, checked too
+        got = st.gated_topm_scan(*args, **kw, cores="cuda")
+        earlier_rep = st.gated_agreement(got, ref, *args[:3], fine=idx.fine,
+                                         sub=idx.sub, chunk=idx.chunk,
+                                         rtol=SCAN_RTOL)
+        say(f"T4 gated_topm vs plain (probes 16) on the cuda cores: "
+            f"{earlier_rep}")
+        check(earlier_rep["ok"],
+              "T4's CUDA-core kernel disagrees with its plain version")
     del got, ref
     ms = time_ms(lambda: st.gated_topm_scan(*args, **kw))
     earlier_ms = (ms if cores == "cuda" else time_ms(
@@ -832,7 +844,8 @@ def gated_check(idx, ql, records) -> None:
                replaces=REPLACES["gated_topm"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               yardstick_ms=yard_ms, cores=cores, earlier_ms=earlier_ms),
+               yardstick_ms=yard_ms, cores=cores, earlier_ms=earlier_ms,
+               earlier_max_abs_err=earlier_rep["max_abs_err"]),
         **records.get("gated_topm", {})}
 
 
@@ -863,7 +876,7 @@ def gated_scan(base, query, base_lo, gt, trained, device, records,
         gated_check(idx, ql, records)
     tq = idx.plan(ql)[2]    # the plan's query tile: B's, whatever probes
     cores = st.gated_cores(idx.x_lo.dtype, idx.x_lo.shape[1], fine=idx.fine,
-                           sub=idx.sub, tq=tq)
+                           tq=tq)
     outs = []
     for probes in GATED_PROBES:
         st.reset_launches()

@@ -187,6 +187,8 @@ constexpr int kTcRowTile = 16;  // mma.sync's M: the rows of one product
 // kChunk rows a pipeline stage (<= 10 KB).
 template <int KS>
 struct TcShape {
+  // scan_topk.tc_warp_queries mirrors 8 * NT (gbnns_gated_warp_queries
+  // reports it, and a card test holds the two equal): edit both together
   static constexpr int NT = KS <= 2 ? 8 : 16 / KS;
   static constexpr int kPitch = KS * 32 + 16;
   static constexpr int kChunk = KS <= 2 ? 128 : 256 / KS;

@@ -499,6 +499,18 @@ const char* gbnns_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// A warp's queries on the tensor-core route at width d (8 * TcShape::NT),
+// the tq step that scan_topk.gated_cores asks for; -1 for no kernel width.
+int gbnns_gated_warp_queries(int d) {
+  switch (d) {
+    case 16: return 8 * gbnns::TcShape<1>::NT;
+    case 32: return 8 * gbnns::TcShape<2>::NT;
+    case 64: return 8 * gbnns::TcShape<4>::NT;
+    case 128: return 8 * gbnns::TcShape<8>::NT;
+    default: return -1;
+  }
+}
+
 // q (B, d) and x (n_pad, d) of one kind: 0 bf16, 2 f32, 3 fp16 (x
 // prescaled); addvec (n_pad,) f32; tile_mask (n_chunks * B / tq,) int32;
 // out_val f32 / out_idx int32, both (m * n_chunks, B). d in {16, 32, 64,

@@ -111,18 +111,20 @@ def shifted_cores(kind, d_aug: int, bin_size: int = 1024) -> str:
 def tc_warp_queries(d: int) -> int:
     """Queries a warp of a tensor-core scan holds at width ``d`` (bf16 or
     fp16 rows of d/16 k-slabs): 8 per n-tile, 64 up to d = 32, then 32 and
-    16 (``TcShape::NT`` in ``csrc/common.cuh``)."""
+    16. Mirrors ``8 * TcShape::NT`` in ``csrc/common.cuh``; the gated
+    library reports its own as ``gbnns_gated_warp_queries``, and a card
+    test holds the two equal."""
     ks = d // 16
     return 8 * (8 if ks <= 2 else 16 // ks)
 
 
-def gated_cores(kind, d: int, *, fine: int, sub: int, tq: int) -> str:
+def gated_cores(kind, d: int, *, fine: int, tq: int) -> str:
     """Which T4 kernel a gated scan launches: "tensor" (bf16 and fp16 at d
     in ``SCAN_WIDTHS``, ``fine`` a multiple of ``TC_ROW_TILE`` and ``tq`` a
     multiple of a warp's queries, ``tc_warp_queries``, so that no warp
     straddles two mask tiles) or "cuda" (f32, whose tensor-core form TF32
     would change the result; fine 4 and 8; a tq that splits a warp).
-    Any ``sub`` (a multiple of ``fine``) serves both."""
+    ``sub`` does not enter: any sub serves both."""
     if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
             and d in SCAN_WIDTHS and fine % TC_ROW_TILE == 0
             and tq % tc_warp_queries(d) == 0):
@@ -180,6 +182,8 @@ def _gated_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gbnns_gated_topm.argtypes = [p, p, p, p, p, p] + [i] * 10 + [p]
         lib.gbnns_gated_topm.restype = i
+        lib.gbnns_gated_warp_queries.argtypes = [i]
+        lib.gbnns_gated_warp_queries.restype = i
         lib._gbnns_bound = True
     return lib
 
@@ -613,7 +617,7 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
     (d in ``SCAN_WIDTHS``, m <= ``GATED_MAX_M``) on the cores
     ``gated_cores`` names, or on ``cores`` as ``binned_scan`` takes it."""
     route = _route(cores, gated_cores(x.dtype, q.shape[1], fine=fine,
-                                      sub=sub, tq=tq), "gated_topm_scan")
+                                      tq=tq), "gated_topm_scan")
     if x.device.type == "cpu":
         return gated_topm_scan_plain(q, x, addvec, tile_mask, metric=metric,
                                      fine=fine, m=m, sub=sub, chunk=chunk,

@@ -173,6 +173,36 @@ def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):
                         "bound_by", "library_ms"}
 
 
+def test_gated_check_holds_both_routes(chip_smoke, monkeypatch, capsys):
+    """At a geometry ``gated_cores`` sends to the tensor cores, the check
+    also holds the CUDA-core kernel (timed as ``earlier_ms``) against the
+    plain version, and records its error."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(4096, 32)).astype(np.float32)
+    idx = GatedScanIndex(base, fine=32, m=16, sub=256, chunk=1024, tq=64,
+                         kmeans_sample=None, device="cpu")
+    records = {}
+    ql = torch.from_numpy(rng.normal(size=(200, 32)).astype(np.float32))
+    chip_smoke.gated_check(idx, ql, records)
+    out = capsys.readouterr().out
+    for cores in ("tensor", "cuda"):
+        assert (f"T4 gated_topm vs plain (probes 16) on the {cores} cores: "
+                in out)
+    assert out.count("'ok': True") == 2
+    rec = records["gated_topm"]
+    assert rec["cores"] == "tensor"
+    assert rec["max_abs_err"] == rec["earlier_max_abs_err"] == 0.0
+    assert rec["earlier_ms"] == 1.0
+
+
 def test_shifted_kernel_check_runs_its_kernel(chip_smoke, monkeypatch,
                                              capsys):
     """The card-only check of T3 against its plain version (bf16 at the
@@ -227,6 +257,36 @@ def test_knn_record_runs_its_kernel(chip_smoke, monkeypatch, capsys):
     assert set(rec) >= {"name", "route", "source", "replaces", "launches",
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms"}
+
+
+def test_gated_check_holds_both_routes(chip_smoke, monkeypatch, capsys):
+    """At a geometry ``gated_cores`` sends to the tensor cores, the check
+    also holds the CUDA-core kernel (timed as ``earlier_ms``) against the
+    plain version, and records its error."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(7)
+    base = rng.normal(size=(4096, 32)).astype(np.float32)
+    idx = GatedScanIndex(base, fine=32, m=16, sub=256, chunk=1024, tq=64,
+                         kmeans_sample=None, device="cpu")
+    records = {}
+    ql = torch.from_numpy(rng.normal(size=(200, 32)).astype(np.float32))
+    chip_smoke.gated_check(idx, ql, records)
+    out = capsys.readouterr().out
+    for cores in ("tensor", "cuda"):
+        assert (f"T4 gated_topm vs plain (probes 16) on the {cores} cores: "
+                in out)
+    assert out.count("'ok': True") == 2
+    rec = records["gated_topm"]
+    assert rec["cores"] == "tensor"
+    assert rec["max_abs_err"] == rec["earlier_max_abs_err"] == 0.0
+    assert rec["earlier_ms"] == 1.0
 
 
 def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):

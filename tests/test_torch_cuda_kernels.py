@@ -430,7 +430,9 @@ GATED_SHAPES = [
 # warp's 64 queries (the 8 warps of a block read 8 mask entries); m 32; B
 # not a multiple of a block's 512 queries; d 16, 64 and 128 (n-tiles 8, 4
 # and 2 a warp, blocks of 512, 256 and 128 queries), each with a partial
-# last block
+# last block; fine groups of two pipeline stages (fine 256 at d 32, 128 at
+# d 64, 64 at d 128: the group's min carries across the ring); chunk /
+# fine = 128 > sub = 64, so km comes from chunk / fine
 GATED_TC_SHAPES = [
     (65536, 32, 1024, 32, 16, 1024, 16384, 512),
     (8192, 32, 512, 16, 16, 256, 2048, 64),
@@ -439,6 +441,10 @@ GATED_TC_SHAPES = [
     (8192, 16, 640, 16, 8, 128, 1024, 128),
     (8192, 64, 288, 32, 16, 256, 2048, 32),
     (4096, 128, 144, 16, 16, 64, 512, 16),
+    (16384, 32, 512, 256, 16, 1024, 8192, 64),
+    (8192, 64, 256, 128, 16, 1024, 4096, 32),
+    (8192, 128, 128, 64, 16, 1024, 4096, 16),
+    (4096, 32, 128, 16, 16, 64, 2048, 64),
 ]
 _DTYPE_IDS = {torch.bfloat16: "bf16", torch.float16: "fp16",
               torch.float32: "f32"}
@@ -453,7 +459,7 @@ def _gated_scan(q, x, add, tile_mask, cores, **kw):
     ``gated_cores`` gives them), its launch counted on that route."""
     if cores == "tensor":
         assert st.gated_cores(x.dtype, x.shape[1], fine=kw["fine"],
-                              sub=kw["sub"], tq=kw["tq"]) == "tensor"
+                              tq=kw["tq"]) == "tensor"
     before = st.launches["gated_topm"]
     on_route = st.launches_by_cores[f"gated_topm:{cores}"]
     got = st.gated_topm_scan(q, x, add, tile_mask, cores=cores, **kw)
@@ -528,6 +534,15 @@ def test_gated_tensor_scan_ties_match_plain_exactly(dev, dtype, d):
     got = _gated_scan(qt, xt, add, keep.to(dev), "tensor", **kw)
     ref = st.gated_topm_scan_plain(qt, xt, add, keep.to(dev), **kw)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_gated_warp_queries_match_the_kernel(dev):
+    """``tc_warp_queries``, on which ``gated_cores`` decides, is the tq step
+    the built tensor-core kernel takes (its ``TcShape::NT``)."""
+    lib = st._gated_library()
+    for d in st.SCAN_WIDTHS:
+        assert lib.gbnns_gated_warp_queries(d) == st.tc_warp_queries(d)
+    assert lib.gbnns_gated_warp_queries(24) == -1
 
 
 def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):

@@ -247,10 +247,10 @@ def test_gated_defaults_take_the_tensor_cores(dtype):
             defaults["scan_dtype"]) == (32, 1024, 512, "bfloat16")
     assert idx.x_lo.dtype == getattr(torch, dtype)
     for tq in (128, 256, 384, 512):
-        assert st.gated_cores(idx.x_lo.dtype, 32, fine=32, sub=1024,
+        assert st.gated_cores(idx.x_lo.dtype, 32, fine=32,
                               tq=tq) == "tensor"
     assert st.gated_cores(dtype, idx.x_lo.shape[1], fine=idx.fine,
-                          sub=idx.sub, tq=128) == "tensor"
+                          tq=128) == "tensor"
 
 
 @pytest.mark.parametrize("d,warp", [(16, 64), (32, 64), (64, 32),
@@ -259,8 +259,7 @@ def test_gated_defaults_take_the_tensor_cores(dtype):
 def test_gated_tensor_route_widths(d, warp, fine):
     assert st.tc_warp_queries(d) == warp
     for kind in ("bfloat16", "float16", torch.bfloat16, torch.float16):
-        assert st.gated_cores(kind, d, fine=fine, sub=1024,
-                              tq=warp) == "tensor"
+        assert st.gated_cores(kind, d, fine=fine, tq=warp) == "tensor"
 
 
 @pytest.mark.parametrize("kind,d,fine,tq", [
@@ -275,7 +274,7 @@ def test_gated_tensor_route_widths(d, warp, fine):
     (torch.bfloat16, 24, 32, 512),   # no kernel width
 ])
 def test_gated_shapes_that_stay_on_the_cuda_cores(kind, d, fine, tq):
-    assert st.gated_cores(kind, d, fine=fine, sub=1024, tq=tq) == "cuda"
+    assert st.gated_cores(kind, d, fine=fine, tq=tq) == "cuda"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
