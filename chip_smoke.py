@@ -16,7 +16,8 @@ each printing its wall time:
    ground truth under results/; the port's exact kNN must reproduce that
    ground truth on the first 1,024 queries;
 3. each scan kernel (K1 binned_scan in bf16, int8, f32 and fp16, and at a
-   reduced width of 160; K2 merge_topc) against its plain PyTorch version
+   reduced width of 160; K2 merge_topc, bit-equal, also timed as the
+   device time of CUDA-graph replays) against its plain PyTorch version
    on the serving shapes, on the route scan_cores gives it (tensor cores
    for bf16, fp16 and int8 at d = 32; CUDA cores for f32 and d = 160),
    with its time, the CUDA-core kernel's on the same inputs (the only
@@ -28,7 +29,8 @@ each printing its wall time:
    (c = 16): requests through submit() and HTTP /search, /search_raw on an
    ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
    QPS (median of ten requests), the recall run with the launch counts set
-   to 0 before and read after, every K1 launch on the tensor cores; R@10
+   to 0 before and read after, every K1 launch on the tensor cores and one
+   K2 launch a K1 launch; R@10
    must lie within 0.005 of the JAX reference's rows on these inputs;
 5. the shifted scan: FusedScanIndex(mode="shifted", bf16) with its build
    seconds and the width T3 takes; all queries at c = 12 with the launch
@@ -59,7 +61,8 @@ each printing its wall time:
 7. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
-   read after, every K1 launch on the tensor cores; K1 in its packed form and K2 at c = K + 1 against their
+   read after, every K1 launch on the tensor cores and one K2 launch a node
+   chunk; K1 in its packed form and K2 at c = K + 1 against their
    plain versions on one 8,192-node chunk of the build's own operands;
    every node reachable from the walker's entries; edge overlap with the
    exact build's graph on 1,024 sampled nodes at least the JAX package's
@@ -72,7 +75,8 @@ each printing its wall time:
    1,024 queries, against its plain version in l2, ip and bf16; its record
    with knn_chunked's time as the yardstick (no single PyTorch call
    computes an exact k-NN) and an fp32 torch.matmul of the same shape;
-9. K3 row_gather against its plain version on 65,536 rows of that payload;
+9. K3 row_gather against its plain version on 65,536 rows of that payload,
+   and its time beside torch.index_select's: medians of interleaved rounds;
 10. walker vs plain: 1,024 queries walked with K3 and with the plain
    gather, identical; the f32-payload walk identical to the plain walker's;
 11. serving: SearchService(engine="graph_pallas") over the 16,384 queries
@@ -212,6 +216,36 @@ def median_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, the graph replayed twice between CUDA events, after a warm-up.
+    For a kernel of tens of microseconds this leaves out the host's launch
+    gaps, which ``time_ms`` counts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_OPS_S[dtype] * 1e3
@@ -323,7 +357,8 @@ def _scan_check(st, args, kw: dict, label: str, plain_iters: int = 2):
 
 def _merge_check(st, vals, ids, c: int, label: str) -> dict:
     """K2 at ``c`` on bin winners ``vals/ids`` against its plain version
-    (equal); returns its record."""
+    (equal); returns its record: ``ms`` as every kernel's (eager calls),
+    ``graph_ms`` the device time of CUDA-graph replays of the same call."""
     import torch
 
     gm = st.merge_topc(vals, ids, c)
@@ -335,18 +370,22 @@ def _merge_check(st, vals, ids, c: int, label: str) -> dict:
     check(equal, f"K2 ({label}) differs from its plain version")
     R, B = vals.shape
     ms = time_ms(lambda: st.merge_topc(vals, ids, c))
+    # a call lasts tens of microseconds: also without the host's gaps
+    g_ms = graph_ms(lambda: st.merge_topc(vals, ids, c))
     plain_ms = time_ms(lambda: st.merge_topc_plain(vals, ids, c), 2)
     vt = vals.T.contiguous()
     lib_ms = time_ms(lambda: torch.topk(vt, c, dim=1, largest=False))
-    b_ms, b_by = bound_ms(R * B * 8 + B * c * 8, 0.0, "bfloat16")
-    say(f"K2 [{label}] R={R} B={B}: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"topk {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
-    # K2 runs on the CUDA cores and was not redesigned
+    # the values once, one 32-byte sector a winner's id, the output
+    b_ms, b_by = bound_ms(R * B * 4 + B * c * 32 + B * c * 8, 0.0,
+                          "bfloat16")
+    say(f"K2 [{label}] R={R} B={B}: {ms:.4f} ms ({g_ms:.4f} ms in CUDA-graph "
+        f"replays), plain {plain_ms:.3f} ms, topk {lib_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms")
     return dict(name=f"merge_topc[{label}]", route="cuda", source=SCAN_SOURCE,
                 replaces=REPLACES["merge_topc"], launches=None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, cores="cuda",
-                earlier_ms=None)
+                earlier_ms=None, graph_ms=g_ms)
 
 
 def _index_args(idx, qlo):
@@ -448,6 +487,15 @@ def gather_check(payload, n_rows: int, device, records):
     plain_ms = time_ms(lambda: gather.row_gather_plain(payload.data, idx,
                                                        check_ids=False), 20)
     lib_ms = time_ms(lambda: torch.index_select(payload.data, 0, idx), 20)
+    # K3 against index_select: medians of nine interleaved rounds
+    fns = {"row_gather": lambda: gather.row_gather(payload.data, idx,
+                                                   check_ids=False),
+           "index_select": lambda: torch.index_select(payload.data, 0, idx)}
+    rounds = {name: [] for name in fns}
+    for r in range(9):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            rounds[name].append(time_ms(fns[name], 20))
+    med = {name: float(np.median(t)) for name, t in rounds.items()}
     row_bytes = payload.words * 4
     b_ms, b_by = bound_ms(2 * n_rows * row_bytes + n_rows * 4, 0.0,
                           "bfloat16")
@@ -455,10 +503,14 @@ def gather_check(payload, n_rows: int, device, records):
         name="row_gather", route="cuda", source=GATHER_SOURCE,
         replaces=REPLACES["row_gather"], launches=None, max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms)
+        library_ms=lib_ms, median_ms=med["row_gather"],
+        library_median_ms=med["index_select"])
     say(f"K3 [{n_rows} x {row_bytes} B]: {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{2 * n_rows * row_bytes / ms / 1e6:.0f} GB/s moved")
+        f"{2 * n_rows * row_bytes / ms / 1e6:.0f} GB/s moved; medians of "
+        f"nine interleaved rounds of 20 calls: K3 "
+        f"{med['row_gather']:.4f} ms, index_select "
+        f"{med['index_select']:.4f} ms")
 
 
 def _post(port: int, path: str, body: bytes, ctype: str) -> bytes:
@@ -613,6 +665,9 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
     if device.type == "cuda":
         check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
               f"the {dtype} serving run launched no kernel: {counts}")
+        check(counts["merge_topc"] == counts["binned_scan"],
+              f"the {dtype} serving run launched K2 more than once a "
+              f"scan: {counts}")
     x = svc.fused.x_lo
     main_path_route(records, f"binned_scan[{dtype}]", "binned_scan",
                     st.scan_cores(x.dtype, x.shape[1], svc.fused.bin_size),
@@ -1002,6 +1057,9 @@ def graph_build(base_lo, device, records, targets: bool):
     if device.type == "cuda":
         check(counts["binned_scan"] > 0 and counts["merge_topc"] > 0,
               f"the fused build launched no kernel: {counts}")
+        check(counts["merge_topc"] == counts["binned_scan"],
+              f"the fused build launched K2 more than once a chunk: "
+              f"{counts}")
     # the build scans bf16 at the kernel's width in bins of fused_bin_size
     main_path_route(records, "binned_scan[bfloat16,packed]", "binned_scan",
                     st.scan_cores(torch.bfloat16, scan_width(base_lo.shape[1]),

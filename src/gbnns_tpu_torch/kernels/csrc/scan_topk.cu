@@ -64,17 +64,40 @@
 //
 // K2 merge_topc -- replaces scan_topk_pallas.py _merge_topc_kernel
 //   (pallas_call at line 600, reached through _merge_topc_stage and
-//   merge_topc). One stage: for each block of `rb` rows of the bin-major
-//   winners and each query, the ck smallest keys in ascending order, where
-//   a key is the flipped IEEE score with the in-block row in its low
-//   log2(rb) bits (unique within a block, so the result is exact). Rows past
-//   R are padding: +inf score, id -1. Output (ck * r_blocks, B).
-//   Bound: it reads the winners once, 977 * 16384 * 8 B = 128 MB at the
-//   serving shapes, ~0.04 ms at 3.35 TB/s: bytes. Design: a block loads an
-//   (rb x 8 queries) tile with coalesced reads into shared memory as keys;
-//   then one warp per query runs ck rounds of a warp-shuffle integer min,
-//   and only the lane that owned the winner rescans its rb/32 keys.
+//   merge_topc). The Pallas merge runs stages: each block of `rb` rows of
+//   the bin-major winners keeps, per query, its ck smallest keys, where a
+//   key is the flipped IEEE score with its low log2(rb) bits replaced by the
+//   in-block row, until one block is left. Its result is the top ck of all
+//   R rows in (quantized key, row) order, the quantized key being
+//   flip(v) & ~(rb - 1): a stage's block holds its rows in ascending
+//   order, and a later stage's in-block row keeps that order. This kernel
+//   computes that order in one launch. Rows past R never enter; a slot left
+//   empty (R < ck) gives +inf and id -1, as the Pallas padding rows do.
+//   Bound: the values once (R * B * 4 bytes), the winners' ids (B * c
+//   sectors of 32 bytes) and the output (B * c * 8): ~72 MB at the serving
+//   shapes (R = 992, B = 16384, c = 12), ~0.022 ms at 3.35 TB/s: bytes.
+//   Design (the staged kernel it replaces ran one launch a stage, staged 8
+//   queries x rb rows a block, and selected with ck rounds of a warp min):
+//   * A thread owns one query, so a warp reads 128 contiguous bytes of a
+//     row, and loads the next kMergeUnroll rows while it offers the
+//     current ones.
+//   * The rows are split across a thread-block cluster of blocks of 128
+//     queries, about kMergeSplitRows rows a block (two at the serving and
+//     build shapes, R = 992), so that 128 or 64 query blocks become 256 or
+//     128 blocks; more splits measured slower (each adds a merge input).
+//   * Each thread keeps its split's smallest words: a word is the
+//     quantized key with the row below it in the cleared low bits (the row
+//     within the split, which the host keeps below rb - 1, so 32 bits; 64
+//     bits with the global row where it cannot). Lists of 16 or 48 words
+//     live in registers and take a word by one branch-free min/max pass,
+//     skipped when no lane of the warp has a word below its list's last;
+//     longer lists (ck > 48) live thread-strided in shared memory. Rows
+//     arrive in ascending order, so an equal key keeps the earlier row.
+//   * Block 0 of each cluster merges the splits' lists through distributed
+//     shared memory by (key, global row), a step ahead on each list, and
+//     gathers the winners' ids eight at a time.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,12 +107,22 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kScanThreads = 128;
 constexpr int kTileBytes = 16384;  // corpus rows staged per step
 constexpr int kWideRows = 32;      // wide scan: corpus rows per step
 constexpr int kWideCols = 64;      // wide scan: columns per staged slab
 
-constexpr int kMergeQueries = 8;   // queries (warps) per merge block
+// K2: queries (threads) a block, splits (blocks) a cluster at most, rows a
+// load batch, rows a split, shared memory for lists kept there, the empty
+// wide word
+constexpr int kMergeThreads = 128;
+constexpr int kMergeMaxSplits = 8;
+constexpr int kMergeUnroll = 8;
+constexpr int kMergeSplitRows = 512;
+constexpr size_t kMergeSmem = 96 * 1024;
+constexpr long long kMergeEmpty = 0x7FFFFFFFFFFFFFFFLL;
 
 using gbnns::flip_bits;
 using gbnns::half8_to_f32;
@@ -537,54 +570,213 @@ cudaError_t launch_scan(const void* q, const void* x, const float* addvec,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kMergeQueries * 32)
+// A list word: the quantized flipped key (its low log2(rb) bits cleared)
+// with the row in its low bits, so that one integer compare gives the
+// (key, row) order. Narrow (32-bit) words hold the row within the split,
+// which the caller keeps below rb; wide (64-bit) words hold the key in the
+// high half and the global row in the low half.
+template <bool WIDE>
+using merge_word_t = std::conditional_t<WIDE, long long, int>;
+
+template <bool WIDE>
+__device__ __forceinline__ merge_word_t<WIDE> merge_word(float v, int row,
+                                                         int qmask) {
+  const int key = flip_bits(__float_as_int(v)) & qmask;
+  if constexpr (WIDE)
+    return ((long long)key << 32) | (unsigned)row;
+  else
+    return key | row;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ constexpr merge_word_t<WIDE> merge_empty() {
+  if constexpr (WIDE)
+    return kMergeEmpty;
+  else
+    return kIntMax;
+}
+
+// A word of split s as a wide word with its global row (split rows start
+// at r0), kMergeEmpty for an empty slot.
+template <bool WIDE>
+__device__ __forceinline__ long long merge_global(merge_word_t<WIDE> w,
+                                                  int qmask, int r0) {
+  if constexpr (WIDE) {
+    return w;
+  } else {
+    if (w == kIntMax) return kMergeEmpty;
+    return ((long long)(w & qmask) << 32) | (unsigned)(r0 + (w & ~qmask));
+  }
+}
+
+// One cluster of `splits` blocks per block of queries; block s scans rows
+// [R * s / splits, R * (s + 1) / splits) for one query a thread and keeps
+// the thread's smallest words: CK of them in registers (CK >= ck; a sorted
+// list updated by a branch-free min/max pass, skipped when no lane of the
+// warp has a word below its list's last), or ck of them thread-strided in
+// shared memory for CK = 0 (wide words only). Then block 0 merges the
+// splits' lists through distributed shared memory and writes the top ck as
+// (value, id) (ck, B); an empty slot (R < ck) gives +inf and -1.
+template <int CK, bool WIDE>
+__global__ void __launch_bounds__(kMergeThreads)
 merge_topc_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                   float* __restrict__ out_val, int* __restrict__ out_idx,
-                  int R, int B, int rb, int rb_bits, int ck) {
-  extern __shared__ int keys[];  // [kMergeQueries][rb]
-  const int blk = blockIdx.x;
-  const int qbase = blockIdx.y * kMergeQueries;
+                  int R, int B, int qmask, int ck) {
+  using W = merge_word_t<WIDE>;
+  static_assert(CK > 0 || WIDE, "lists in shared memory hold wide words");
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  W* lst = reinterpret_cast<W*>(merge_smem);  // [list length][blockDim.x]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int nt = blockDim.x;
   const int tid = threadIdx.x;
-  const int mask = (1 << rb_bits) - 1;
-  const long long g0 = (long long)blk * rb;
+  const int qi = blockIdx.y * nt + tid;
+  const bool live = qi < B;
+  const int r0 = (int)((long long)R * split / splits);
+  const int r1 = (int)((long long)R * (split + 1) / splits);
+  const int base = WIDE ? 0 : r0;  // narrow words hold row - r0
+  const int len = CK > 0 ? CK : ck;
 
-  // coalesced load: consecutive threads take consecutive queries of a row
-  for (int i = tid; i < rb * kMergeQueries; i += blockDim.x) {
-    const int row = i / kMergeQueries;
-    const int col = i % kMergeQueries;
-    const long long g = g0 + row;
-    const int qi = qbase + col;
-    float v = __int_as_float(0x7F800000);  // padding row: +inf
-    if (g < R && qi < B) v = vals[g * B + qi];
-    keys[col * rb + row] = (flip_bits(__float_as_int(v)) & ~mask) | row;
-  }
-  __syncthreads();
-
-  const int w = tid >> 5;
-  const int lane = tid & 31;
-  const int qi = qbase + w;
-  if (qi >= B) return;
-  int* kq = keys + w * rb;
-  int local = kIntMax;
-  for (int r = lane; r < rb; r += 32) local = min(local, kq[r]);
-  for (int t = 0; t < ck; ++t) {
-    int m = local;
+  W l[CK > 0 ? CK : 1];
+  if constexpr (CK > 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = min(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
-    const int row = m & mask;
-    if (lane == 0) {
-      const long long o = ((long long)blk * ck + t) * B + qi;
-      out_val[o] = __int_as_float(flip_bits(m & ~mask));
-      out_idx[o] = (g0 + row < R) ? ids[(g0 + row) * B + qi] : -1;
-    }
-    if ((row & 31) == lane) {  // the owner drops the winner and rescans
-      kq[row] = kIntMax;
-      local = kIntMax;
-      for (int r = lane; r < rb; r += 32) local = min(local, kq[r]);
-    }
-    __syncwarp();
+    for (int j = 0; j < CK; ++j) l[j] = merge_empty<WIDE>();
+  } else {
+    for (int j = 0; j < ck; ++j) lst[j * nt + tid] = merge_empty<WIDE>();
   }
+  W thr = merge_empty<WIDE>();  // the shared-memory list's last word
+  // a warp reads 128 contiguous bytes of a row; the next batch of
+  // kMergeUnroll rows is loaded while the current one is offered
+  const float* col = vals + (live ? qi : 0);
+  auto load = [&](float (&v)[kMergeUnroll], int r) {
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u)
+      v[u] = live && r + u < r1 ? __ldcs(col + (long long)(r + u) * B) : 0.f;
+  };
+  float cur[kMergeUnroll], nxt[kMergeUnroll];
+  load(cur, r0);
+  for (int r = r0; r < r1; r += kMergeUnroll) {
+    load(nxt, r + kMergeUnroll);
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u) {
+      W w = live && r + u < r1
+                ? merge_word<WIDE>(cur[u], r + u - base, qmask)
+                : merge_empty<WIDE>();
+      if constexpr (CK > 0) {
+        // warp-uniform: one min/max pass leaves the list as it is for a
+        // word above it, so it is skipped when no lane has one below
+        if (__any_sync(0xFFFFFFFFu, w < l[CK - 1])) {
+#pragma unroll
+          for (int j = 0; j < CK; ++j) {
+            const W lo = min(l[j], w);
+            w = max(l[j], w);
+            l[j] = lo;
+          }
+        }
+      } else if (w < thr) {  // rows ascend: an equal key keeps the earlier row
+        int j = ck - 1;
+        for (; j > 0 && lst[(j - 1) * nt + tid] > w; --j)
+          lst[j * nt + tid] = lst[(j - 1) * nt + tid];
+        lst[j * nt + tid] = w;
+        thr = lst[(ck - 1) * nt + tid];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u) cur[u] = nxt[u];
+  }
+  if constexpr (CK > 0) {
+#pragma unroll
+    for (int j = 0; j < CK; ++j) lst[j * nt + tid] = l[j];
+  }
+  cluster.sync();  // every split's list is in its block's shared memory
+
+  if (split == 0 && live) {
+    // the splits are ascending row ranges: by (key, global row)
+    // each split's head and the word after it (loaded a step ahead)
+    const W* src[kMergeMaxSplits];
+    long long head[kMergeMaxSplits], next[kMergeMaxSplits];
+    int pos[kMergeMaxSplits], rs[kMergeMaxSplits];
+    auto word = [&](int s, int p) {
+      return p < len ? merge_global<WIDE>(src[s][p * nt + tid], qmask, rs[s])
+                     : kMergeEmpty;
+    };
+#pragma unroll
+    for (int s = 0; s < kMergeMaxSplits; ++s) {
+      rs[s] = (int)((long long)R * s / splits);
+      src[s] = s < splits ? cluster.map_shared_rank(lst, s) : lst;
+      head[s] = s < splits ? word(s, 0) : kMergeEmpty;
+      next[s] = s < splits ? word(s, 1) : kMergeEmpty;
+      pos[s] = 0;
+    }
+    // slots in groups of eight: the merge first, then the group's id loads
+    // together (ck is a multiple of 8)
+    for (int t0 = 0; t0 < ck; t0 += 8) {
+      long long win[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        long long best = head[0];
+        int bs = 0;
+#pragma unroll
+        for (int s = 1; s < kMergeMaxSplits; ++s)
+          if (head[s] < best) {
+            best = head[s];
+            bs = s;
+          }
+#pragma unroll
+        for (int s = 0; s < kMergeMaxSplits; ++s)
+          if (s == bs) {
+            ++pos[s];
+            head[s] = next[s];
+            next[s] = word(s, pos[s] + 1);
+          }
+        win[u] = best;
+      }
+      int id[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        id[u] = win[u] == kMergeEmpty
+                    ? -1
+                    : __ldg(ids + (long long)(int)(win[u] & 0xFFFFFFFF) * B + qi);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const long long o = (long long)(t0 + u) * B + qi;
+        out_val[o] = win[u] == kMergeEmpty
+                         ? __int_as_float(0x7F800000)
+                         : __int_as_float(flip_bits((int)(win[u] >> 32)));
+        out_idx[o] = id[u];
+      }
+    }
+  }
+  cluster.sync();  // block 0 has read every list: the blocks may exit
+}
+
+template <int CK, bool WIDE>
+cudaError_t launch_merge(const float* vals, const int* ids, float* out_val,
+                         int* out_idx, int R, int B, int qmask, int ck,
+                         int splits, int threads, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)(CK > 0 ? CK : ck) * threads * sizeof(merge_word_t<WIDE>);
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_topc_kernel<CK, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (B + threads - 1) / threads, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, merge_topc_kernel<CK, WIDE>, vals, ids,
+                           out_val, out_idx, R, B, qmask, ck);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -646,26 +838,44 @@ int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
 #undef GBNNS_LAUNCH
 }
 
-// One merge stage: vals f32 / ids int32 (R, B) bin-major -> out (ck *
-// ceil(R / rb), B). rb a power of two in [2, 2048], ck <= rb / 2.
-int gbnns_merge_topc_stage(const float* vals, const int* ids, float* out_val,
-                           int* out_idx, int R, int B, int rb, int ck,
-                           void* stream) {
-  int rb_bits = 0;
-  while ((1 << rb_bits) < rb) ++rb_bits;
-  if (R <= 0 || B <= 0 || rb < 2 || rb > 2048 || (1 << rb_bits) != rb ||
-      ck <= 0 || 2 * ck > rb)
+// The top-ck merge of bin-major winners vals f32 / ids int32 (R, B) ->
+// out (ck, B), ascending by (quantized key, row): the result of the staged
+// merge of blocks of rb rows (scan_topk.merge_topc_plain) in one launch.
+// rb a power of two in [2, 2048], 8 <= ck <= rb / 2 with ck a multiple
+// of 8, R >= 1.
+int gbnns_merge_topc(const float* vals, const int* ids, float* out_val,
+                     int* out_idx, int R, int B, int rb, int ck,
+                     void* stream) {
+  if (R <= 0 || B <= 0 || rb < 2 || rb > 2048 || (rb & (rb - 1)) != 0 ||
+      ck < 8 || ck % 8 != 0 || 2 * ck > rb)
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)rb * kMergeQueries * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_topc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((R + rb - 1) / rb, (B + kMergeQueries - 1) / kMergeQueries);
-  merge_topc_kernel<<<grid, kMergeQueries * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      vals, ids, out_val, out_idx, R, B, rb, rb_bits, ck);
-  return cudaGetLastError();
+  // splits of about kMergeSplitRows rows; narrow words when a split's rows
+  // fit below rb - 1 (so no word reaches the empty word kIntMax)
+  int splits = (R + kMergeSplitRows - 1) / kMergeSplitRows;  // R >= 1
+  if (splits > kMergeMaxSplits) splits = kMergeMaxSplits;
+  const int narrow_splits = (R + rb - 2) / (rb - 1);
+  const bool wide = narrow_splits > kMergeMaxSplits;
+  if (!wide && narrow_splits > splits) splits = narrow_splits;
+  // register lists of 16 or 48 words; past 48, wide words in shared memory,
+  // a block of queries small enough that its lists fit in kMergeSmem bytes
+  const int list = ck <= 16 ? 16 : ck <= 48 ? 48 : 0;
+  int threads = kMergeThreads;
+  if (list == 0) {
+    threads = (int)(kMergeSmem / ((size_t)ck * sizeof(long long)));
+    if (threads > kMergeThreads) threads = kMergeThreads;
+    if (threads >= 32) threads -= threads % 32;
+  }
+  if ((B + threads - 1) / threads > 65535) return cudaErrorInvalidValue;
+  const int qmask = ~(rb - 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GBNNS_MERGE(CK, WIDE)                                               \
+  launch_merge<CK, WIDE>(vals, ids, out_val, out_idx, R, B, qmask, ck,      \
+                         splits, threads, s)
+  if (list == 0) return GBNNS_MERGE(0, true);
+  if (list == 16)
+    return wide ? GBNNS_MERGE(16, true) : GBNNS_MERGE(16, false);
+  return wide ? GBNNS_MERGE(48, true) : GBNNS_MERGE(48, false);
+#undef GBNNS_MERGE
 }
 
 }  // extern "C"

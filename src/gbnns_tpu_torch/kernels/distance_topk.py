@@ -33,8 +33,9 @@ from gbnns_tpu_torch.kernels.topk import _smallest, smallest_k
 KNN_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128)
 KNN_MAX_K = 128
 _KNN_MAX_SPLITS = 64
-_KINDS = {torch.bfloat16: 0, torch.float32: 2}
-_THREADS = 128
+_DTYPES = (torch.bfloat16, torch.float32)
+_BLOCK_QUERIES = 64   # the kernel's kQt
+_TILE_ROWS = 256      # its corpus tile, kRt
 
 launches = _build.LaunchCounts("knn_topk")
 reset_launches = launches.reset
@@ -46,6 +47,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gbnns_knn_topk.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.gbnns_knn_topk.restype = i
+        lib.gbnns_knn_blocks_per_sm.argtypes = [i, i, p]
+        lib.gbnns_knn_blocks_per_sm.restype = i
         lib._gbnns_bound = True
     return lib
 
@@ -55,7 +58,7 @@ def _check_args(q, x, k: int, metric: str, n_valid: int | None) -> int:
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     for t in (q, x):
-        if t.dtype not in _KINDS:
+        if t.dtype not in _DTYPES:
             raise TypeError(f"knn_topk takes float32 or bfloat16 inputs, "
                             f"got {t.dtype}")
     if q.device != x.device:
@@ -100,15 +103,31 @@ def knn_topk_plain(q, x, k: int, *, metric: str = "l2",
     return best_d, best_i.to(torch.int32)
 
 
-def _splits(nq: int, n: int, device: torch.device) -> tuple[int, int]:
-    """Corpus splits across blocks: enough blocks for eight a streaming
-    multiprocessor, each split at least 256 rows. Returns (splits,
+def _blocks_per_sm(lib, width: int, k: int) -> int:
+    """The kernel's blocks resident a multiprocessor of the current device
+    at this width and k (its shared memory grows with both)."""
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.gbnns_knn_blocks_per_sm(width, k,
+                                                  ctypes.byref(blocks)),
+                 "knn_topk occupancy")
+    return blocks.value
+
+
+def _splits(lib, nq: int, n: int, width: int, k: int,
+            device: torch.device) -> tuple[int, int]:
+    """Corpus splits across the kernel's blocks of 64 queries: as many as
+    fill the card once at the blocks its launch geometry keeps resident a
+    streaming multiprocessor (every split costs each query a first tile
+    and about k · ln(rows / k) candidates), each split at least 256 rows
+    and a whole number of the kernel's 256-row tiles. Returns (splits,
     rows_per_split)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = -(-nq // _THREADS)
-    splits = max(1, min(_KNN_MAX_SPLITS, -(-8 * sms // q_blocks),
-                        -(-n // 256)))
+    q_blocks = -(-nq // _BLOCK_QUERIES)
+    per_sm = _blocks_per_sm(lib, width, k)
+    splits = max(1, min(_KNN_MAX_SPLITS, per_sm * sms // q_blocks,
+                        -(-n // _TILE_ROWS)))
     rows = -(-n // splits)
+    rows = -(-rows // _TILE_ROWS) * _TILE_ROWS
     return -(-n // rows), rows
 
 
@@ -136,31 +155,32 @@ def knn_topk(q, x, k: int, *, metric: str = "l2", qt: int = 256,
     if width is None:
         raise ValueError(f"the knn_topk kernel takes d <= {KNN_WIDTHS[-1]}, "
                          f"got {d}")
-    if q.dtype != x.dtype:
-        q, x = q.float(), x.float()
-    x = x[:n]
-    qf, xf = q.float(), x.float()
+    # f32 operands (bf16 widened exactly), zero columns up to the width, the
+    # corpus transposed (width, ldx) so that its tiles arrive column-major
+    qf, xf = q.float(), x[:n].float()
     qsq = (qf * qf).sum(-1).contiguous()
-    xsq = (xf * xf).sum(-1).contiguous()
-    del qf, xf
-    if width != d:
-        q = torch.nn.functional.pad(q, (0, width - d))
-        x = torch.nn.functional.pad(x, (0, width - d))
-    q, x = _build.aligned(q), _build.aligned(x)
-    splits, rows = _splits(nq, n, q.device)
+    ldx = -(-n // 4) * 4
+    xsq = torch.zeros(ldx, dtype=torch.float32, device=q.device)
+    xsq[:n] = (xf * xf).sum(-1)
+    qf = _build.aligned(torch.nn.functional.pad(qf, (0, width - d)))
+    xt = torch.zeros((width, ldx), dtype=torch.float32, device=q.device)
+    xt[:d, :n] = xf.T
+    del xf
+    lib = _library()
+    with torch.cuda.device(q.device):
+        splits, rows = _splits(lib, nq, n, width, k, q.device)
     part_d = torch.empty((nq, splits, k), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=q.device)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
-    lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.gbnns_knn_topk(
-            q.data_ptr(), x.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+            qf.data_ptr(), xt.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), nq, n, width, k, splits, rows,
-            int(metric == "l2"), _KINDS[q.dtype], stream)
+            out_i.data_ptr(), nq, n, ldx, width, k, splits, rows,
+            int(metric == "l2"), stream)
     _build.check(lib, err, "knn_topk")
     launches.count("knn_topk")
     return out_d, out_i

@@ -160,8 +160,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gbnns_binned_scan.argtypes = [p, p, p, p, p, p] + [i] * 7 + [p]
         lib.gbnns_binned_scan.restype = i
-        lib.gbnns_merge_topc_stage.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.gbnns_merge_topc_stage.restype = i
+        lib.gbnns_merge_topc.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gbnns_merge_topc.restype = i
         lib._gbnns_bound = True
     return lib
 
@@ -713,13 +713,15 @@ def merge_topc(vals, ids, c: int, *, rb: int = 512):
     ``binned_scan``) → ``(vals (B, c) f32, ids (B, c) int32)``, ascending by
     the quantized key.
 
-    Hierarchical, as in the Pallas version: each stage reduces blocks of
-    ``rb`` rows to their top ck = round_up(c, 8) by flipped-IEEE keys with
-    the in-block row in the low log2(rb) bits, until one block remains.
-    Values come back quantized to 2^-(23 - log2 rb) relative; padding slots
-    carry +inf and id -1. Past rb = 2048, or when c >= R, the merge is an
-    exact sort instead. CPU tensors take ``merge_topc_plain``; CUDA tensors
-    launch K2 once per stage.
+    The result of the Pallas version's hierarchical merge: each stage
+    reduces blocks of ``rb`` rows to their top ck = round_up(c, 8) by
+    flipped-IEEE keys with the in-block row in the low log2(rb) bits, until
+    one block remains. That is the top c of all rows in (quantized key,
+    row) order, which the kernel computes in one launch. Values come back
+    quantized to 2^-(23 - log2 rb) relative; padding slots carry +inf and
+    id -1. Past rb = 2048, or when c >= R, the merge is an exact sort
+    instead. CPU tensors take ``merge_topc_plain``; CUDA tensors launch K2
+    once.
     """
     if vals.device.type == "cpu":
         return merge_topc_plain(vals, ids, c, rb=rb)
@@ -729,29 +731,22 @@ def merge_topc(vals, ids, c: int, *, rb: int = 512):
             or vals.shape != ids.shape or vals.ndim != 2:
         raise ValueError("merge_topc takes f32 vals and int32 ids of one "
                          "(R, B) shape")
-    ck, rb, fallback = _merge_plan(c, rb, vals.shape[0])
+    R, B = vals.shape
+    ck, rb, fallback = _merge_plan(c, rb, R)
     if fallback:
         return exact_topc(vals, ids, c)
     lib = _library()
-    B = vals.shape[1]
     vals, ids = vals.contiguous(), ids.contiguous()
+    out_v = torch.empty((ck, B), dtype=torch.float32, device=vals.device)
+    out_i = torch.empty((ck, B), dtype=torch.int32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        while True:
-            R = vals.shape[0]
-            rows = ck * (-(-R // rb))
-            out_v = torch.empty((rows, B), dtype=torch.float32,
-                                device=vals.device)
-            out_i = torch.empty((rows, B), dtype=torch.int32,
-                                device=vals.device)
-            err = lib.gbnns_merge_topc_stage(
-                vals.data_ptr(), ids.data_ptr(), out_v.data_ptr(),
-                out_i.data_ptr(), R, B, rb, ck, stream)
-            _build.check(lib, err, "merge_topc")
-            launches.count("merge_topc")
-            vals, ids = out_v, out_i
-            if rows == ck:
-                return vals[:c].T, ids[:c].T
+        err = lib.gbnns_merge_topc(vals.data_ptr(), ids.data_ptr(),
+                                   out_v.data_ptr(), out_i.data_ptr(), R, B,
+                                   rb, ck, stream)
+    _build.check(lib, err, "merge_topc")
+    launches.count("merge_topc")
+    return out_v[:c].T, out_i[:c].T
 
 
 class FusedScanIndex:

@@ -21,9 +21,13 @@ from gbnns_tpu_torch.search.rerank import rerank
 
 def flat_search(queries_lo, base_lo, queries_full, base_full, k: int, *,
                 c: int = 32, metric: str = "l2", chunk: int = 65536,
+                exact: bool = False, precision: str | None = "default",
                 base_full_sqnorms: torch.Tensor | None = None):
     """Scan the reduced space for the top-``c`` candidates, re-rank at full
-    dimension, return ``(ids (B, k) int32, dists (B, k) f32)``."""
+    dimension, return ``(ids (B, k) int32, dists (B, k) f32)``. ``exact``
+    and ``precision`` are the JAX keywords, accepted and changing no
+    result: the candidate scan is always exact, with fp32 products of the
+    stored values."""
     _, si = knn_chunked(queries_lo, base_lo, c, metric=metric, chunk=chunk)
     return rerank(queries_full, base_full, si, k, metric=metric,
                   base_sqnorms=base_full_sqnorms)
@@ -44,7 +48,8 @@ class FlatIndex:
         self.base_full_sqnorms = squared_norms(self.base_full)
 
     def search(self, queries_full, queries_lo=None, *, k: int = 10,
-               c: int = 32):
+               c: int = 32, exact: bool = False):
+        """``flat_search`` over the stored corpus; ``exact`` as there."""
         qf = torch.as_tensor(queries_full, dtype=torch.float32,
                              device=self.device)
         ql = qf if queries_lo is None else torch.as_tensor(

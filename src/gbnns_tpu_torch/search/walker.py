@@ -190,6 +190,7 @@ def beam_search(queries, base, graph, entry_ids, *, ef: int,
                 max_hops: int = 256, metric: str = "l2",
                 visited_mode: str = "beam",
                 base_sqnorms: torch.Tensor | None = None,
+                precision: str = "highest",
                 expand: int = 4, intra_dedup: bool = True,
                 packed_vecs: torch.Tensor | None = None,
                 packed_sqnorms: torch.Tensor | None = None) -> SearchResult:
@@ -202,7 +203,9 @@ def beam_search(queries, base, graph, entry_ids, *, ef: int,
     ``base_sqnorms`` when given, else from the gathered vectors (the same
     ops as the payload walker, which keeps the two bit-identical).
     ``packed_vecs``/``packed_sqnorms`` (from ``pack_neighbors``) fetch a
-    node's K neighbour vectors as one row."""
+    node's K neighbour vectors as one row. ``precision`` is the JAX
+    keyword, accepted and changing no result: every precision computes the
+    fp32 distances (``"highest"``)."""
     dev = base.device
     qf = torch.as_tensor(queries, device=dev).float()
     graph = torch.as_tensor(graph, device=dev).to(torch.int32)

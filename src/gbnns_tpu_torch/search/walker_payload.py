@@ -126,14 +126,17 @@ def _hop_dists(raw, qf, q_sq, *, B: int, M: int, K: int, d: int,
 @torch.no_grad()
 def beam_search_payload(queries, payload: HopPayload, base_lo, entry_ids, *,
                         ef: int, max_hops: int = 256, metric: str = "l2",
-                        expand: int = 4, intra_dedup: bool = True,
-                        visited_mode: str = "beam",
+                        precision: str = "highest", expand: int = 4,
+                        intra_dedup: bool = True, visited_mode: str = "beam",
+                        interpret: bool | None = None,
                         gather: Callable = row_gather) -> SearchResult:
     """Payload-hop lockstep beam search: ``walker.beam_search`` with the
     same pool semantics and knobs; ``base_lo (n, d)`` only seeds the entry
     points. ``gather`` is the hop's row fetch: kernel K3 (``row_gather``)
     unless a check passes its plain version. With an f32 payload the walk
-    is identical to ``beam_search``'s."""
+    is identical to ``beam_search``'s. ``precision`` and ``interpret`` are
+    the JAX keywords, accepted and changing no result: the distances are
+    fp32 at any precision, and there is no Pallas kernel to interpret."""
     data = payload.data
     qf = torch.as_tensor(queries, device=data.device).float()
     base_f32 = torch.as_tensor(base_lo, device=data.device).float()
@@ -152,3 +155,8 @@ def beam_search_payload(queries, payload: HopPayload, base_lo, entry_ids, *,
                  n=payload.n, ef=ef, max_hops=max_hops, metric=metric,
                  visited_mode=visited_mode, expand=expand,
                  intra_dedup=intra_dedup)
+
+
+# The JAX package's name for the payload walker (``walker_pallas``), under
+# which its callers import it.
+beam_search_pallas = beam_search_payload

@@ -123,8 +123,8 @@ def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
 
 
 def test_sources_include_only_cuda_headers_and_common():
-    allowed = {"<cuda_runtime.h>", "<cuda_fp16.h>", "<stdint.h>",
-               "<type_traits>", '"common.cuh"'}
+    allowed = {"<cuda_runtime.h>", "<cuda_fp16.h>", "<cooperative_groups.h>",
+               "<stdint.h>", "<type_traits>", '"common.cuh"'}
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(
         _build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {"scan_topk.cu", "gated_topm.cu",

@@ -126,6 +126,8 @@ def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
 
     monkeypatch.setattr(chip_smoke, "time_ms",
                         lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "graph_ms",
+                        lambda fn, iters=20: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     base_lo = np.random.default_rng(5).normal(size=(2048, 32)) \
         .astype(np.float32)
@@ -139,7 +141,18 @@ def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
     assert scan["max_abs_err"] == 0.0 and scan["bound_ms"] > 0
     assert scan["library_ms"] == 1.0 and merge["library_ms"] == 1.0
     assert merge["launches"] == 7   # the build run's count is kept
-    assert set(scan) == set(merge)
+    assert set(merge) == set(scan) | {"graph_ms"}   # K2's graph replays
+    # K2's bound: the values once, a 32-byte sector a winner's id, the
+    # output; its eager time and its time in CUDA-graph replays
+    import re
+
+    R, B = map(int, re.search(r"K2 \[build,c=33\] R=(\d+) B=(\d+)",
+                              out).groups())
+    c = 33
+    assert merge["earlier_ms"] is None and merge["graph_ms"] == 1.0
+    assert merge["bound_by"] == "bytes"
+    assert abs(merge["bound_ms"] - (R * B * 4 + B * c * 40)
+               / chip_smoke.PEAK_BYTES_S * 1e3) < 1e-12
 
 
 def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):

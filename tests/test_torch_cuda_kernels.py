@@ -230,10 +230,45 @@ def test_merge_topc_kernel_equals_plain(dev, R, B, c, rb):
     before = st.launches["merge_topc"]
     gv, gi = st.merge_topc(vals, ids, c, rb=rb)
     torch.cuda.synchronize()
-    assert st.launches["merge_topc"] > before
+    assert st.launches["merge_topc"] == before + 1
     rv, ri = st.merge_topc_plain(vals, ids, c, rb=rb)
     assert torch.equal(gi, ri)
     assert torch.equal(gv, rv)
+
+
+# (R, B, c, rb): the CPU order cases of test_torch_merge_order.py (ties,
+# +inf rows, R not a multiple of rb, up to nine stages, fewer rows than ck)
+# and the main path's shapes: serving bf16 c = 12 and int8 c = 16 over 992
+# bins of 16,384 queries, the build's c = 33 over 8,192 nodes; B not a
+# multiple of a block's 128 queries
+MERGE_ORDER_CASES = [
+    (37, 5, 12, 512), (977, 9, 12, 512), (992, 7, 16, 512),
+    (992, 6, 33, 512), (5000, 4, 12, 32), (3001, 3, 16, 64),
+    (20000, 3, 100, 512), (100000, 2, 12, 512), (100, 8, 12, 32),
+    (14, 4, 12, 512), (992, 16384, 12, 512), (992, 16384, 16, 512),
+    (992, 8192, 33, 512), (300, 1000, 12, 512), (2000, 333, 33, 512),
+    (700, 130, 300, 1024),
+]
+
+
+@pytest.mark.parametrize("R,B,c,rb", MERGE_ORDER_CASES,
+                         ids=["-".join(map(str, s)) for s in MERGE_ORDER_CASES])
+def test_merge_topc_one_launch_equals_plain_with_ties(dev, R, B, c, rb):
+    """One K2 launch a call, bit-equal to the staged plain merge on values
+    with ties across blocks and splits and +inf rows."""
+    rng = np.random.default_rng(R + c + rb)
+    vals = np.round(rng.normal(size=(R, B)) * 8.0) / 8.0
+    vals[rng.random((R, B)) < 0.05] = np.inf
+    ids = rng.integers(0, 1 << 30, (R, B))
+    vals = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    before = st.launches["merge_topc"]
+    gv, gi = st.merge_topc(vals, ids, c, rb=rb)
+    torch.cuda.synchronize()
+    assert st.launches["merge_topc"] == before + 1
+    rv, ri = st.merge_topc_plain(vals, ids, c, rb=rb)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv.view(torch.int32), rv.view(torch.int32))
 
 
 def test_merge_topc_fallback_launches_nothing(dev):
@@ -806,3 +841,72 @@ def test_knn_topk_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="k=501 > n=500"):
         dt.knn_topk(q, x, 501)
     assert dt.launches["knn_topk"] == before
+
+
+def _integer_knn_inputs(nq, n, d, seed):
+    """Small-integer queries and rows, every corpus row stored twice: every
+    product and sum is exact in any order, so distances tie often (the
+    duplicates always) and the kernel must equal plain bit for bit."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-4, 5, size=(-(-n // 2), d)).astype(np.float32)
+    x = np.concatenate([rows, rows])[:n][rng.permutation(n)]
+    q = rng.integers(-4, 5, size=(nq, d)).astype(np.float32)
+    return torch.from_numpy(q), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("d", dt.KNN_WIDTHS)
+@pytest.mark.parametrize("k", [1, 33, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_knn_topk_kernel_is_exact_on_integer_inputs(dev, d, k, metric, dtype):
+    """Every kernel width, k = 1, 33 and 128, nq and n not multiples of the
+    kernel's 64-query and 256-row tiles, several corpus splits, duplicated
+    rows: one launch, ids and distances equal to plain (max_abs_err 0)."""
+    q, x = _integer_knn_inputs(130, 1037, d, seed=d + k)
+    q, x = q.to(dev, dtype), x.to(dev, dtype)
+    before = dt.launches["knn_topk"]
+    got = dt.knn_topk(q, x, k, metric=metric)
+    torch.cuda.synchronize()
+    assert dt.launches["knn_topk"] == before + 1
+    ref = dt.knn_topk_plain(q, x, k, metric=metric)
+    rep = dt.knn_agreement(got, ref, q, x, metric=metric)
+    assert rep["ok"] and rep["max_abs_err"] == 0.0, rep
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("k", [1, 33, 128])
+def test_knn_topk_n_valid_on_integer_inputs(dev, k):
+    """Rows past ``n_valid`` (copies of the queries, distance 0) are never
+    selected; the rest equals plain exactly."""
+    q, x = _integer_knn_inputs(70, 700, 32, seed=k)
+    x = torch.cat([x, q[:60]])
+    got = dt.knn_topk(q.to(dev), x.to(dev), k, n_valid=700)
+    ref = dt.knn_topk_plain(q, x, k, n_valid=700)
+    assert (got[1] < 700).all()
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[0].cpu(), ref[0])
+
+
+@pytest.mark.parametrize("d", dt.KNN_WIDTHS)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_knn_topk_splits_of_several_tiles_on_integer_inputs(dev, d, metric):
+    """2,100 queries (33 blocks) keep the splits few, so each split scans
+    several 256-row tiles, and at d > 32 each tile in several ring stages:
+    ids and distances equal to plain (max_abs_err 0)."""
+    q, x = _integer_knn_inputs(2100, 5000, d, seed=d)
+    got = dt.knn_topk(q.to(dev), x.to(dev), 33, metric=metric)
+    ref = dt.knn_topk_plain(q, x, 33, metric=metric)
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[0].cpu(), ref[0])
+
+
+@pytest.mark.parametrize("d", dt.KNN_WIDTHS)
+def test_knn_blocks_per_sm_fits_every_width_and_k(dev, d):
+    """The launch geometry keeps at least one block resident at every width
+    and k, and two at the build's d = 32, k = 33."""
+    lib = dt._library()
+    for k in (1, 33, 128):
+        blocks = dt._blocks_per_sm(lib, d, k)
+        assert blocks >= 1, (d, k, blocks)
+        if (d, k) == (32, 33):
+            assert blocks == 2

@@ -154,12 +154,18 @@ def test_float16_scan_plain_is_exact_products():
 def _pairs():
     """Each exported JAX entry point beside the port's."""
     import gbnns_tpu.kernels.topk as jtopk
+    import gbnns_tpu.search.flat as jflat
     import gbnns_tpu.search.gated as jgated
     import gbnns_tpu.search.graph_index as jgraph
+    import gbnns_tpu.search.walker_jax as jwalk
+    import gbnns_tpu.search.walker_pallas as jwalkp
     import gbnns_tpu.serve as jserve
     import gbnns_tpu_torch.kernels.topk as ttopk
+    import gbnns_tpu_torch.search.flat as tflat
     import gbnns_tpu_torch.search.gated as tgated
     import gbnns_tpu_torch.search.graph_index as tgraph
+    import gbnns_tpu_torch.search.walker as twalk
+    import gbnns_tpu_torch.search.walker_payload as twalkp
     import gbnns_tpu_torch.serve as tserve
 
     return {
@@ -176,6 +182,18 @@ def _pairs():
                           tserve.SearchService.__init__),
         "CentroidEntries.build": (JaxEntries.build,
                                   km_entries().build),
+        "flat_search": (jflat.flat_search, tflat.flat_search),
+        "FlatIndex.search": (JaxFlat.search, FlatIndex.search),
+        "beam_search": (jwalk.beam_search, twalk.beam_search),
+        "beam_search_pallas": (jwalkp.beam_search_pallas,
+                               twalkp.beam_search_pallas),
+        "FusedScanIndex.search": (JaxFused.search, FusedScanIndex.search),
+        "FusedScanIndex.candidates": (JaxFused.candidates,
+                                      FusedScanIndex.candidates),
+        "GatedScanIndex.search": (jgated.GatedScanIndex.search,
+                                  tgated.GatedScanIndex.search),
+        "GraphIndex.search": (jgraph.GraphIndex.search,
+                              tgraph.GraphIndex.search),
     }
 
 
@@ -188,7 +206,13 @@ def km_entries():
                                   "knn_chunked", "knn_fused", "knn",
                                   "FlatIndex", "GatedScanIndex",
                                   "GraphIndex.build", "SearchService",
-                                  "CentroidEntries.build"])
+                                  "CentroidEntries.build", "flat_search",
+                                  "FlatIndex.search", "beam_search",
+                                  "beam_search_pallas",
+                                  "FusedScanIndex.search",
+                                  "FusedScanIndex.candidates",
+                                  "GatedScanIndex.search",
+                                  "GraphIndex.search"])
 def test_port_takes_every_jax_keyword_in_its_order(name):
     """Every parameter of the JAX entry point is a parameter of the port's,
     in the same order; the port may add its own (``device``, ``stats``)."""
@@ -199,6 +223,33 @@ def test_port_takes_every_jax_keyword_in_its_order(name):
     missing = [p for p in want if p not in have]
     assert not missing, f"{name} lacks {missing}"
     assert [p for p in have if p in want] == want
+
+
+def test_payload_walker_answers_to_its_jax_name():
+    """JAX callers import the payload walker as ``beam_search_pallas``."""
+    from gbnns_tpu_torch.search.walker_payload import (beam_search_pallas,
+                                                       beam_search_payload)
+
+    assert beam_search_pallas is beam_search_payload
+
+
+def test_flat_search_takes_jax_calls(fixture_data):
+    """The JAX package's own calls (tests/test_flat.py) run on the port and
+    change no result: the port's candidate scan is exact already."""
+    base, query = fixture_data
+    idx = FlatIndex(base, device="cpu")
+    want = idx.search(query, k=10, c=32)
+    got = idx.search(query, k=10, c=32, exact=True)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    from gbnns_tpu_torch.search.flat import flat_search
+
+    qf = torch.from_numpy(query)
+    ql = qf.to(idx.base_lo.dtype)
+    for exact, precision in ((True, "highest"), (False, "default")):
+        ids, _ = flat_search(ql, idx.base_lo, qf, idx.base_full, 10, c=32,
+                             exact=exact, precision=precision,
+                             base_full_sqnorms=idx.base_full_sqnorms)
+        assert torch.equal(ids, want[0])
 
 
 def test_fused_tq_changes_no_result(fixture_data):
