@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
-scan (binned and shifted), the cluster-gated scan, the exact fused kNN and
-the graph walker.
+scan (binned and shifted), the cluster-gated scan, the IVF index, the
+projection trainer, the exact fused kNN and the graph walker.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,11 @@ each printing its wall time:
    QPS (median of ten requests), the recall run with the launch counts set
    to 0 before and read after, every K1 launch on the tensor cores and one
    K2 launch a K1 launch; R@10
-   must lie within 0.005 of the JAX reference's rows on these inputs;
+   must lie within 0.005 of the JAX reference's rows on these inputs; in
+   bf16, three more requests under the profiler (eval.trace.profile_trace,
+   the Chrome trace written to .traces/request/) and where their
+   time goes: device time by named stage (upload, projection, K1, K2,
+   re-rank, copy), host spans, and the device's idle share;
 5. the shifted scan: FusedScanIndex(mode="shifted", bf16) with its build
    seconds and the width T3 takes; all queries at c = 12 with the launch
    counts set to 0 before and read after (one T3 launch, on the tensor
@@ -58,7 +62,22 @@ each printing its wall time:
    fraction, QPS (median of ten synchronized searches) and T4's time on
    both routes; R@10 must not fall as probes grows (within
    tests/test_gated.py's slack) and reach 0.95 at probes 32;
-7. graph build on the projected corpus: build_knn_graph(backend="fused",
+7. the IVF index: IVFIndex.build at its defaults (seed 0) with its seconds
+   and stats (ncent 4096 and cap 488 as in BENCH_r05.json; the spill
+   beside the JAX package's 4,361), then probes 8, 16, 32 at c = 32 with
+   R@1, R@10, QPS (median of ten synchronized searches) and the peak
+   device memory of a search; R@10 must not fall as probes grows and not
+   lie below the JAX reference (0.8885, 0.9457, 0.9773) less 0.005; one
+   search under set_sync_debug_mode("error") (no wait for the host); one
+   search at probes 32 under the profiler (.traces/ivf/), its
+   device time by stage;
+8. the projection trainer at bench.py's recipe: the 262,144-row subsample
+   of default_rng(1), its exact in-sample neighbours (k_pos 10), 600 steps
+   of batch 1024, validation every 150; its seconds, val history and best
+   step; every loss finite and the selected val not below step 0's; a
+   bf16 FusedScanIndex over the new projection answers all queries at
+   c = 12 with R@10 at least 0.95 (the cached projection reads 0.9622);
+9. graph build on the projected corpus: build_knn_graph(backend="fused",
    K = 32) on K1 and K2, with the seconds of the sweep, the reverse edges
    and the reachability repair, and the launch counts set to 0 before and
    read after, every K1 launch on the tensor cores and one K2 launch a node
@@ -68,22 +87,22 @@ each printing its wall time:
    exact build's graph on 1,024 sampled nodes at least the JAX package's
    0.7874 less 0.02; centroid entries (n / 256 centroids) and the bf16 hop
    payload;
-8. the exact fused kNN (T6 knn_topk) at the build's shape: 8,192 rows of
+10. the exact fused kNN (T6 knn_topk) at the build's shape: 8,192 rows of
    the projected corpus against all of it, k = 33, l2, f32, with the launch
    count set to 0 before and read after; held against knn_chunked (within
    1e-5 of the largest distance, ids equal except at near-ties) and, on
    1,024 queries, against its plain version in l2, ip and bf16; its record
    with knn_chunked's time as the yardstick (no single PyTorch call
    computes an exact k-NN) and an fp32 torch.matmul of the same shape;
-9. K3 row_gather against its plain version on 65,536 rows of that payload,
+11. K3 row_gather against its plain version on 65,536 rows of that payload,
    and its time beside torch.index_select's: medians of interleaved rounds;
-10. walker vs plain: 1,024 queries walked with K3 and with the plain
+12. walker vs plain: 1,024 queries walked with K3 and with the plain
    gather, identical; the f32-payload walk identical to the plain walker's;
-11. serving: SearchService(engine="graph_pallas") over the 16,384 queries
+13. serving: SearchService(engine="graph_pallas") over the 16,384 queries
    at ef = 32, 48, 64 (submit() and HTTP), with R@1, R@10, K3 launches per
    request (one per hop) and QPS; R@10 at ef = 64 at least 0.95 and not
    falling as ef grows;
-12. teardown: services stopped, HTTP servers shut down, threads joined.
+14. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -103,6 +122,7 @@ import threading
 import time
 
 sys.dont_write_bytecode = True  # write nothing into the checkout but builds
+#                                 and the profiler traces (.traces/)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -132,6 +152,21 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
 GATED_PROBES = (4, 8, 16, 32)
 GATED_C = 32
 GATED_R10_MIN = 0.95
+# the IVF index at bench.py's settings and the JAX reference's R@10 at c = 32
+# (BENCH_r05.json: ncent 4096, cap 488, spill 4,361 on the TPU)
+IVF_C = 32
+IVF_R10 = {8: 0.8885, 16: 0.9457, 32: 0.9773}
+IVF_SHAPE = {"ncent": 4096, "cap": 488}
+IVF_JAX_SPILL = 4361
+# the trainer at bench.py's recipe, and the fused bf16 row its projection
+# must serve (the cached projection reads 0.9622 there)
+TRAIN_STEPS = 600
+REDUCED_DIM = 32
+TRAIN_R10_MIN = 0.95
+# three served bf16 requests, and one IVF search at probes 32, under the
+# profiler; the traces stay in the ignored .traces/
+TRACE_REQUESTS = 3
+TRACE_DIR = ROOT / ".traces"
 # the shifted scan's check of its fp16 and f32 kinds; the exact kNN's
 # shape (the graph build's node chunk and K + 1) and its slices
 SHIFTED_KIND_B = 2048
@@ -527,14 +562,14 @@ def _post(port: int, path: str, body: bytes, ctype: str) -> bytes:
 
 
 def _serve(svc, label: str, query, gt, direct_fn, counters: dict,
-           timed: int) -> dict:
+           timed: int, trace: bool = False) -> dict:
     """Requests through ``svc`` (submit() from four threads, one HTTP
     /search_raw and one /search) held against ``direct_fn(rows)``, the same
     search without the service; then the main path: all queries as one
     request with every launch count in ``counters`` (module → names) set to
-    0 before and read after, and ``timed`` more requests on the host clock.
-    Stops the service and its HTTP server. Returns recall, QPS and
-    counts."""
+    0 before and read after, and ``timed`` more requests on the host clock;
+    with ``trace``, ``traced`` requests after them. Stops the service and its
+    HTTP server. Returns recall, QPS and counts."""
     import numpy as np
 
     from gbnns_tpu_torch.serve import (make_server, pack_raw_request, serve,
@@ -583,6 +618,10 @@ def _serve(svc, label: str, query, gt, direct_fn, counters: dict,
             f"{share:.4f} of rows equal to a direct search")
         check(share >= 0.99, "served rows differ from a direct search")
         out = _main_path(svc, label, query, gt, counters, timed)
+        if trace:
+            out["trace"] = traced(
+                lambda: svc.submit(query, None, 10, timeout=600),
+                TRACE_DIR / "request", TRACE_REQUESTS, f"{label} request")
     finally:
         httpd.shutdown()   # serve() returns, closes the socket, stops svc
         server.join(30)
@@ -634,6 +673,86 @@ def _main_path(svc, label: str, query, gt, counters: dict,
     return out
 
 
+def trace_breakdown(events: list, wall_s: list) -> dict:
+    """Where ``len(wall_s)`` requests' time went, from the events of their
+    profiler trace: device time by stage (a kernel or copy belongs to the
+    innermost named range, ``serve.*`` or ``fused.rerank``, whose thread
+    launched it, found through the launch's correlation id; K1 and K2 by
+    their names), the host spans of those ranges, and how much of the
+    requests' wall time the device was busy (the union of its intervals).
+    Times are milliseconds a request."""
+    n_req = len(wall_s)
+    ranges = [e for e in events
+              if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat", "").startswith("cuda_")
+                and "correlation" in e.get("args", {})}
+    work = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def stage(ev) -> str:
+        for tag, name in (("binned_scan", "K1 binned_scan"),
+                          ("merge_topc", "K2 merge_topc")):
+            if tag in ev["name"]:
+                return name
+        launch = launches.get(ev.get("args", {}).get("correlation"))
+        if launch is None:
+            return "unattributed"
+        inner = [r for r in ranges if r.get("tid") == launch.get("tid")
+                 and r["ts"] <= launch["ts"] <= r["ts"] + r["dur"]]
+        return (min(inner, key=lambda r: r["dur"])["name"] if inner
+                else "outside the named stages")
+
+    device_ms: dict[str, float] = {}
+    for ev in work:
+        key = stage(ev)
+        if ev.get("cat") == "gpu_memcpy":
+            key += " (copy)"
+        device_ms[key] = device_ms.get(key, 0.0) + ev["dur"] / 1e3 / n_req
+    busy, end = 0.0, None
+    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in work):
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    host_ms: dict[str, float] = {}
+    for r in ranges:
+        host_ms[r["name"]] = host_ms.get(r["name"], 0.0) + r["dur"] / 1e3 / n_req
+    wall_ms = sum(wall_s) * 1e3 / n_req
+    busy_ms = busy / 1e3 / n_req
+    return {"requests": n_req, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_ms": dict(sorted(device_ms.items(),
+                                     key=lambda kv: -kv[1])),
+            "host_span_ms": host_ms}
+
+
+def traced(fn, out_dir: pathlib.Path, calls: int, label: str) -> dict:
+    """``calls`` calls of ``fn`` (each waited for) under
+    ``eval.trace.profile_trace``, the Chrome trace written to ``out_dir``,
+    and their breakdown (``trace_breakdown``)."""
+    import torch
+
+    from gbnns_tpu_torch.eval.trace import TRACE_FILE, profile_trace
+
+    wall_s = []
+    with profile_trace(str(out_dir)):
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s.append(time.perf_counter() - t0)
+    with open(out_dir / TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    out = trace_breakdown(events, wall_s)
+    check(out["device_busy_ms"] > 0, f"the {label} trace holds no device "
+          f"work")
+    say(f"{label} trace ({out_dir / TRACE_FILE}): {json.dumps(out)}")
+    return out
+
+
 def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
                 targets: bool, timed: int) -> dict:
     import torch
@@ -655,8 +774,10 @@ def serve_fused(dtype, base, query, base_lo, gt, trained, device, records,
         return svc.fused.search(q, projector(trained)(q), k=10,
                                 c=c)[0].cpu().numpy()
 
+    trace = dtype == "bfloat16" and device.type == "cuda"
     out = _serve(svc, f"fused {dtype} c={c}", query, gt, direct,
-                 {st: ("binned_scan", "merge_topc")}, timed)
+                 {st: ("binned_scan", "merge_topc")}, timed,
+                 trace=trace)
     counts = out["launches"]
     records.setdefault(f"binned_scan[{dtype}]", {})["launches"] = \
         counts["binned_scan"]
@@ -993,6 +1114,142 @@ def gated_scan(base, query, base_lo, gt, trained, device, records,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return outs
+
+
+def ivf_phase(base, query, base_lo, gt, trained, device, targets: bool,
+              timed: int) -> list[dict]:
+    """IVFIndex.build at its defaults (seed 0), then probes 8, 16, 32 at
+    c = 32: R@1, R@10, QPS (median of ``timed`` synchronized searches) and
+    the peak device memory of a search; one search under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises if it waits
+    for the host."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import projector
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.search.ivf import IVFIndex
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    idx = IVFIndex.build(base, base_lo, seed=0, device=device)
+    sync()
+    say(f"IVFIndex.build: {time.perf_counter() - t0:.2f} s, stats "
+        f"{idx.stats} (JAX package on the TPU: spill {IVF_JAX_SPILL})")
+    if targets:
+        got = {k: idx.stats[k] for k in IVF_SHAPE}
+        check(got == IVF_SHAPE, f"IVF shape {got}, not {IVF_SHAPE}")
+    qf = torch.from_numpy(query).to(device)
+    ql = projector(trained)(qf)
+    outs = []
+    for probes in sorted(IVF_R10):
+        if cuda:
+            sync()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        ids = idx.search(qf, ql, k=10, c=IVF_C, probes=probes)[0]
+        ids = ids.cpu().numpy()
+        peak = (torch.cuda.max_memory_allocated() - before) if cuda else None
+        check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+              and ids.max() < base.shape[0], "IVF result ids out of range")
+        r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+        batch_s = []
+        for _ in range(timed):
+            sync()
+            t0 = time.perf_counter()
+            idx.search(qf, ql, k=10, c=IVF_C, probes=probes)
+            sync()
+            batch_s.append(time.perf_counter() - t0)
+        med = float(np.median(batch_s))
+        out = {"engine": f"ivf probes={probes} c={IVF_C}", "r1": r1,
+               "r10": r10, "qps": query.shape[0] / med,
+               "search_ms": [t * 1e3 for t in batch_s],
+               "peak_bytes": peak, "reference_r10": IVF_R10[probes]}
+        say(f"ivf probes={probes} c={IVF_C}: R@1={r1:.4f} R@10={r10:.4f} "
+            f"(JAX on the TPU {IVF_R10[probes]}), {med * 1e3:.2f} ms a "
+            f"search of {query.shape[0]} projected queries (median of "
+            f"{timed}), QPS={out['qps']:,.0f}, peak "
+            f"{'not measured' if peak is None else f'{peak / 1e9:.2f} GB'}")
+        say(json.dumps(out))
+        outs.append(out)
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx.search(qf, ql, k=10, c=IVF_C, probes=16)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        say("ivf search under set_sync_debug_mode('error'): no host sync")
+        traced(lambda: idx.search(qf, ql, k=10, c=IVF_C, probes=32),
+               TRACE_DIR / "ivf", 1, f"ivf probes=32 c={IVF_C} search")
+    r = [o["r10"] for o in outs]
+    if targets:
+        check(all(a <= b for a, b in zip(r, r[1:])),
+              f"IVF R@10 falls as probes grows: {r}")
+        for o, (probes, ref) in zip(outs, sorted(IVF_R10.items())):
+            check(o["r10"] >= ref - R10_TOL, f"IVF R@10 {o['r10']:.4f} at "
+                  f"probes {probes} is below the reference {ref} less "
+                  f"{R10_TOL}")
+    del idx
+    if cuda:
+        torch.cuda.empty_cache()
+    return outs
+
+
+def train_phase(base, query, gt, device, targets: bool,
+                steps: int = TRAIN_STEPS) -> dict:
+    """The port's trainer at bench.py's recipe
+    (``gbnns_tpu_torch.bench.retrain_projection``: the subsample of
+    ``default_rng(1)``, positives its exact in-sample neighbours, ``steps``
+    steps of batch 1024, validation every max(50, steps // 4)); then a
+    bf16 FusedScanIndex over the new projection answers all queries at
+    c = 12."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.bench import retrain_projection
+    from gbnns_tpu_torch.dimred.train import project, projector
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels.scan_topk import FusedScanIndex
+
+    trained, secs = retrain_projection(base, REDUCED_DIM, steps, device)
+    hist = [float(v) for v in trained["val_history"]]
+    say(f"train_projection ({secs['rows']} rows, {steps} steps): "
+        f"{secs['train_s']:.2f} s (exact neighbours "
+        f"{secs['neighbours_s']:.2f} s); val@{trained['cfg'].val_c} by step "
+        f"{hist}, best step {trained['best_step']} "
+        f"({trained['best_val']:.4f})")
+    losses = trained["losses"]
+    check(losses.shape == (steps,) and np.isfinite(losses).all(),
+          "training losses are not all finite")
+    check(trained["best_val"] >= hist[0],
+          f"the selected val {trained['best_val']} is below step 0's "
+          f"{hist[0]}")
+    base_lo = project(trained, base)
+    idx = FusedScanIndex(base, base_lo, device=device)
+    qf = torch.from_numpy(query).to(device)
+    ids = idx.search(qf, projector(trained)(qf), k=10,
+                     c=REFERENCE["bfloat16"]["c"])[0].cpu().numpy()
+    r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+    out = {**secs, "val_history": hist, "best_step": trained["best_step"],
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "r1": r1, "r10": r10, "cached_r10": REFERENCE["bfloat16"]["r10"]}
+    say(f"fused bf16 c={REFERENCE['bfloat16']['c']} over the trained "
+        f"projection: R@1={r1:.4f} R@10={r10:.4f} (the cached projection: "
+        f"{REFERENCE['bfloat16']['r10']})")
+    say(json.dumps(out))
+    if targets:
+        check(r10 >= TRAIN_R10_MIN, f"R@10 {r10:.4f} over the trained "
+              f"projection is below {TRAIN_R10_MIN}")
+    del idx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def build_chunk_check(base_lo, device, records):
@@ -1353,10 +1610,12 @@ def serve_graph(base, query, base_lo, gt, trained, graph, entries, device,
 
 def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
          proj_file: str = "bench_proj_n1000000_d128x32_s600_sel_seed1.npz",
-         targets: bool = True, timed: int = 10) -> dict:
+         targets: bool = True, timed: int = 10,
+         train_steps: int = TRAIN_STEPS) -> dict:
     """Run every phase; ``targets`` holds recall and overlap to the
     reference figures, which belong to the default sizes only; ``timed``
-    requests are timed per served configuration."""
+    requests are timed per served configuration; ``train_steps`` are the
+    trainer's."""
     import torch
 
     from gbnns_tpu_torch._device import resolve_device
@@ -1390,6 +1649,10 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
     with Phase("gated scan"):
         gated_scan(base, query, base_lo, gt, trained, device, records,
                    targets, timed)
+    with Phase("ivf"):
+        ivf_phase(base, query, base_lo, gt, trained, device, targets, timed)
+    with Phase("train projection"):
+        train_phase(base, query, gt, device, targets, train_steps)
     with Phase("graph build"):
         graph, entries, payload = graph_build(base_lo, device, records,
                                               targets)

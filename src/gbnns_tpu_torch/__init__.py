@@ -8,8 +8,9 @@ counterpart is found by name (``search/walker.py`` is ``walker_jax.py``,
 ``search/walker_payload.py`` is ``walker_pallas.py``,
 ``kernels/distance_topk.py`` is ``distance_topk_pallas.py``). Ported so far
 (ROADMAP.md): the fused-scan serving path (binned and shifted), the graph
-serving path, the cluster-gated scan and the exact fused kNN; every Pallas
-kernel of the JAX package has its CUDA counterpart.
+serving path, the cluster-gated scan, the exact fused kNN, the IVF index,
+PCA and projection training, and the headline benchmark (``bench.py``);
+every Pallas kernel of the JAX package has its CUDA counterpart.
 
   io/        fvecs/ivecs codecs, dataset registry, synthetic data
   kernels/   distances, exact kNN (chunked, and the fused exact kNN), the
@@ -17,11 +18,13 @@ kernel of the JAX package has its CUDA counterpart.
              and row gather (hand-written CUDA kernels under
              kernels/csrc/)
   build/     kNN-graph build and its host passes, k-means
-  dimred/    projection models and the checkpoint loader
-  search/    re-rank, flat index, cluster-gated scan index, centroid
-             entries, beam walkers, graph index, device-memory sizing
-  eval/      recall, exact ground truth
+  dimred/    projection models, PCA, the triplet trainer and checkpoints
+  search/    re-rank, flat index, IVF index, cluster-gated scan index,
+             centroid entries, beam walkers, graph index, device-memory
+             sizing
+  eval/      recall, exact ground truth, QPS timing, tracing
   serve.py   HTTP search service; cli.py its command line
+  bench.py   the headline benchmark (python -m gbnns_tpu_torch.bench)
 
 Entry points take ``device=None``, which means the card: without a CUDA
 device they raise unless the caller passes ``device="cpu"``.
@@ -35,13 +38,18 @@ _EXPORTS = {
     "FlatIndex": "gbnns_tpu_torch.search.flat",
     "GraphIndex": "gbnns_tpu_torch.search.graph_index",
     "GatedScanIndex": "gbnns_tpu_torch.search.gated",
+    "IVFIndex": "gbnns_tpu_torch.search.ivf",
     "CentroidEntries": "gbnns_tpu_torch.search.entries",
     "build_knn_graph": "gbnns_tpu_torch.build.knn_graph",
     "beam_search": "gbnns_tpu_torch.search.walker",
     "beam_search_payload": "gbnns_tpu_torch.search.walker_payload",
     "SearchService": "gbnns_tpu_torch.serve",
+    "TrainConfig": "gbnns_tpu_torch.dimred.train",
+    "train_projection": "gbnns_tpu_torch.dimred.train",
     "load_projection": "gbnns_tpu_torch.dimred.train",
     "project": "gbnns_tpu_torch.dimred.train",
+    "pca_fit": "gbnns_tpu_torch.dimred.pca",
+    "pca_transform": "gbnns_tpu_torch.dimred.pca",
     "load_dataset": "gbnns_tpu_torch.io.datasets",
     "exact_ground_truth": "gbnns_tpu_torch.eval.recall",
     "recall_at_k": "gbnns_tpu_torch.eval.recall",

@@ -1,17 +1,22 @@
 """``python -m gbnns_tpu_torch.cli`` — the port's command line.
 
+  synth     materialize a dataset as base.fvecs and query.fvecs
+  gt        exact ground truth → ivecs
   build     kNN graph → npy (backends xla, fused)
+  train     projection (pca | linear | mlp) → pca.npz or proj.npz, then
+            base_lo.fvecs and query_lo.fvecs
   serve     HTTP search service over staged artifacts (engines fused, flat,
             graph, graph_pallas)
 
-The other subcommands of the JAX package's ``gbnns`` CLI (synth, gt, train,
-search, sweep, plot, size, pipeline) are still to be ported (ROADMAP.md).
-``build`` and ``serve`` take the same flags as there, plus ``--device``.
+The other subcommands of the JAX package's ``gbnns`` CLI (search, sweep,
+plot, size, pipeline) are still to be ported (ROADMAP.md). The ported ones
+take the same flags as there, plus ``--device`` where they compute.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -54,6 +59,79 @@ def build_service(args):
                          h2d_dtype=args.h2d_dtype, device=args.device)
 
 
+def cmd_synth(args):
+    from gbnns_tpu_torch.io.datasets import load_dataset
+    from gbnns_tpu_torch.io.vecs import write_fvecs
+
+    ds = load_dataset(args.dataset, scale=args.scale, max_base=args.max_base)
+    os.makedirs(args.out, exist_ok=True)
+    write_fvecs(os.path.join(args.out, "base.fvecs"), ds.base)
+    write_fvecs(os.path.join(args.out, "query.fvecs"), ds.query)
+    print(f"wrote {args.out}/base.fvecs {ds.base.shape} and query.fvecs "
+          f"{ds.query.shape}")
+
+
+def cmd_gt(args):
+    from gbnns_tpu_torch.eval.recall import exact_ground_truth
+    from gbnns_tpu_torch.io.vecs import write_ivecs
+
+    base, query = _load_base_query(args)
+    t0 = time.perf_counter()
+    gt = exact_ground_truth(query, base, k=args.k, metric=args.metric,
+                            device=args.device)
+    print(f"ground truth {gt.shape} in {time.perf_counter() - t0:.1f}s")
+    write_ivecs(args.out, gt)
+    print(f"wrote {args.out}")
+
+
+def cmd_train(args):
+    from gbnns_tpu_torch.dimred.pca import pca_fit, pca_transform
+    from gbnns_tpu_torch.dimred.train import (TrainConfig, project,
+                                              save_projection,
+                                              train_projection)
+    from gbnns_tpu_torch.eval.recall import exact_ground_truth
+    from gbnns_tpu_torch.io.vecs import read_ivecs, write_fvecs
+
+    base, query = _load_base_query(args)
+    os.makedirs(args.out, exist_ok=True)
+    t0 = time.perf_counter()
+    if args.method == "pca":
+        model = pca_fit(base, args.d_out, device=args.device)
+        angular = args.metric == "angular"
+        base_lo = pca_transform(model, base, normalize=angular,
+                                device=args.device)
+        q_lo = (pca_transform(model, query, normalize=angular,
+                              device=args.device)
+                if query is not None else None)
+        np.savez(os.path.join(args.out, "pca.npz"), mean=model.mean,
+                 components=model.components)
+    else:
+        if args.neighbors:
+            nbrs = np.asarray(read_ivecs(args.neighbors))
+        else:
+            print("computing training neighbors (exact GT of base vs base)...",
+                  flush=True)
+            nbrs = exact_ground_truth(base, base, k=args.k_pos + 1,
+                                      device=args.device)[:, 1:]
+        cfg = TrainConfig(d_out=args.d_out, model=args.method,
+                          metric=args.metric, steps=args.steps,
+                          batch_size=args.batch_size, lr=args.lr,
+                          k_pos=args.k_pos, eval_every=args.eval_every,
+                          seed=args.seed)
+        trained = train_projection(base, nbrs, cfg,
+                                   log_every=args.steps // 10 or 1,
+                                   device=args.device)
+        save_projection(os.path.join(args.out, "proj.npz"), trained)
+        base_lo = project(trained, base)
+        q_lo = project(trained, query) if query is not None else None
+    print(f"trained {args.method} projection d→{args.d_out} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    write_fvecs(os.path.join(args.out, "base_lo.fvecs"), base_lo)
+    if q_lo is not None:
+        write_fvecs(os.path.join(args.out, "query_lo.fvecs"), q_lo)
+    print(f"wrote projected vectors to {args.out}/")
+
+
 def cmd_build(args):
     from gbnns_tpu_torch.build.knn_graph import build_knn_graph, save_graph
 
@@ -86,18 +164,33 @@ def make_parser() -> argparse.ArgumentParser:
                                             "PyTorch and CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def add_data_args(sp):
+    def add_data_args(sp, query=True):
         sp.add_argument("--dataset", default="sift1m")
         sp.add_argument("--scale", type=float, default=1.0)
         sp.add_argument("--max-base", type=int, default=None, dest="max_base")
         sp.add_argument("--base", help="base.fvecs path (overrides --dataset)")
+        if query:
+            sp.add_argument("--query", help="query.fvecs path")
         sp.add_argument("--metric", default="l2",
                         choices=["l2", "ip", "angular"])
         sp.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
 
-    sp = sub.add_parser("build", help="kNN graph → npy")
+    sp = sub.add_parser("synth", help="materialize dataset as fvecs")
+    sp.add_argument("--dataset", default="sift1m")
+    sp.add_argument("--scale", type=float, default=1.0)
+    sp.add_argument("--max-base", type=int, default=None, dest="max_base")
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_synth)
+
+    sp = sub.add_parser("gt", help="exact ground truth → ivecs")
     add_data_args(sp)
+    sp.add_argument("--k", type=int, default=100)
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_gt)
+
+    sp = sub.add_parser("build", help="kNN graph → npy")
+    add_data_args(sp, query=False)
     sp.add_argument("--k", type=int, default=32)
     sp.add_argument("--chunk", type=int, default=65536)
     sp.add_argument("--node-chunk", type=int, default=8192, dest="node_chunk")
@@ -112,8 +205,26 @@ def make_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out", required=True)
     sp.set_defaults(fn=cmd_build)
 
-    sp = sub.add_parser("serve", help="HTTP search service over staged artifacts")
+    sp = sub.add_parser("train", help="dimensionality-reduction projection")
     add_data_args(sp)
+    sp.add_argument("--method", default="linear",
+                    choices=["pca", "linear", "mlp"])
+    sp.add_argument("--d-out", type=int, required=True, dest="d_out")
+    sp.add_argument("--neighbors", help="ivecs of true-NN rows for sampling")
+    sp.add_argument("--steps", type=int, default=2000)
+    sp.add_argument("--batch-size", type=int, default=1024, dest="batch_size")
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--k-pos", type=int, default=10, dest="k_pos")
+    sp.add_argument("--eval-every", type=int, default=0, dest="eval_every",
+                    help="validation-gated checkpoint selection cadence "
+                         "(0 = off; returns the best checkpoint incl. the "
+                         "init by held-out NN-ordering preservation)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out", required=True, help="output directory")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("serve", help="HTTP search service over staged artifacts")
+    add_data_args(sp, query=False)
     sp.add_argument("--base-lo", dest="base_lo")
     sp.add_argument("--graph", help="adjacency npy (the graph engines)")
     sp.add_argument("--proj", help="projection checkpoint (proj.npz) to project raw queries")

@@ -920,8 +920,9 @@ class FusedScanIndex:
                              device=self.device)
         ql = qf if queries_lo is None else queries_lo
         cand = self.candidates(ql, c=c, merge=merge)
-        return rerank(qf, self.base_full, cand, k, metric=self.metric,
-                      base_sqnorms=self.base_sq)
+        with torch.profiler.record_function("fused.rerank"):
+            return rerank(qf, self.base_full, cand, k, metric=self.metric,
+                          base_sqnorms=self.base_sq)
 
 
 def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,

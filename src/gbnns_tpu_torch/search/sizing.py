@@ -57,6 +57,25 @@ class HbmBreakdown:
         return (self.payload_bytes + self.reduced_bytes + self.rerank_bytes
                 + self.graph_bytes + self.norms_bytes)
 
+    def fits(self, hbm_bytes: float, *, headroom: float = 2e9) -> bool:
+        """Whether the resident bytes leave ``headroom`` of ``hbm_bytes``
+        for scan scratch, temporaries and the query batch."""
+        return self.total_bytes <= hbm_bytes - headroom
+
+    def as_dict(self) -> dict:
+        """The breakdown with its total, under the JAX package's keys
+        (``fits_v5e_16gb`` and ``fits_v4_32gb`` answer for 16 and 32 GB of
+        device memory, whatever the card)."""
+        d = {f: int(getattr(self, f)) for f in
+             ("payload_bytes", "reduced_bytes", "rerank_bytes",
+              "graph_bytes", "norms_bytes")}
+        d.update(engine=self.engine, n=self.n,
+                 total_bytes=int(self.total_bytes),
+                 total_gb=round(self.total_bytes / 1e9, 2),
+                 fits_v5e_16gb=self.fits(16e9),
+                 fits_v4_32gb=self.fits(32e9))
+        return d
+
 
 def graph_index_hbm(n: int, d: int, d_lo: int, K: int, *,
                     vec_dtype: str = "bfloat16", rerank_itemsize: int = 4,

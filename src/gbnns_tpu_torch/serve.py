@@ -36,6 +36,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gbnns_tpu_torch._device import resolve_device
 
@@ -228,7 +229,8 @@ class SearchService:
                             if batch[0].queries_lo is not None else None)
                     k = max(p.k for p in batch)
                     ids, dists, m = self._search_device(qs, qlos, k)
-                    ready = self._to_host(ids, dists)
+                    with record_function("serve.copy"):
+                        ready = self._to_host(ids, dists)
                 except Exception as e:  # deliver dispatch errors to waiters
                     for p in batch:
                         p.fail(f"{type(e).__name__}: {e}")
@@ -293,12 +295,16 @@ class SearchService:
                 queries_lo = np.concatenate(
                     [queries_lo, np.repeat(queries_lo[-1:], pad, axis=0)])
         # ONE host->device upload per dispatch; projection runs on device
+        # the stages are named for a profiler trace (eval.trace)
         up = torch.bfloat16 if self.h2d_dtype == "bfloat16" else torch.float32
-        qt = self._upload(queries, up)
-        qlo = None if queries_lo is None else self._upload(queries_lo, up)
+        with record_function("serve.upload"):
+            qt = self._upload(queries, up)
+            qlo = None if queries_lo is None else self._upload(queries_lo, up)
         if qlo is None and self.projection is not None:
-            qlo = self.projection(qt)
-        ids, dists = self._search_exact(qt, qlo, k)
+            with record_function("serve.project"):
+                qlo = self.projection(qt)
+        with record_function("serve.search"):
+            ids, dists = self._search_exact(qt, qlo, k)
         return ids, dists, m
 
     def _upload(self, a, dtype):

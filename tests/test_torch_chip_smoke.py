@@ -1,9 +1,11 @@
 """chip_smoke.py's phases rehearsed on the CPU at a small size: the corpus
 of n = 20,000 with its cached ground truth and projection, the fused service
 in bf16 and int8 over submit() and HTTP, the shifted-key index, the gated
-scan's probes sweep, the graph build, the exact fused kNN, the walker
-checks, the graph_pallas service, and a teardown that leaves no thread.
-(The kernel phases and the launch and recall checks need the card.)"""
+scan's probes sweep, the IVF index's probes sweep, the projection trainer
+(40 steps), the graph build, the exact fused kNN, the walker checks, the
+graph_pallas service, and a teardown that leaves no thread. (The kernel
+phases, the request trace and the launch and recall checks need the
+card.)"""
 
 import importlib.util
 import pathlib
@@ -28,7 +30,7 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
     records = chip_smoke.main(
         "cpu", n=20000, nq=1024,
         proj_file="bench_proj_n20000_d128x32_s600_seed1.npz", targets=False,
-        timed=2)
+        timed=2, train_steps=40)
     out = capsys.readouterr().out
     assert "ground truth: 1024/1024 rows equal" in out
     assert out.count("1.0000 of rows equal to a direct search") == 3
@@ -39,6 +41,11 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
     for probes in (4, 8, 16, 32):
         assert f"gated probes={probes} c=32: R@1=" in out
     assert "GatedScanIndex: " in out and "'n_chunks': 2" in out
+    assert "IVFIndex.build: " in out and "'ncent': 512" in out
+    for probes in (8, 16, 32):
+        assert f"ivf probes={probes} c=32: R@1=" in out
+    assert "train_projection (20000 rows, 40 steps): " in out
+    assert "fused bf16 c=12 over the trained projection: R@1=" in out
     assert "fused graph (20000, 32)" in out and "launches {" in out
     assert "the kernel takes d_aug = 36" in out
     assert "fused shifted c=12: R@1=" in out
@@ -313,6 +320,8 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
                         lambda *a, **k: {"r10": 1.0})
     monkeypatch.setattr(chip_smoke, "shifted_fused", lambda *a, **k: {})
     monkeypatch.setattr(chip_smoke, "gated_scan", lambda *a, **k: [])
+    monkeypatch.setattr(chip_smoke, "ivf_phase", lambda *a, **k: [])
+    monkeypatch.setattr(chip_smoke, "train_phase", lambda *a, **k: {})
     monkeypatch.setattr(chip_smoke, "exact_knn", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "graph_build",
                         lambda *a, **k: (None, None, None))
@@ -330,3 +339,50 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
         stop.set()
         foreign.join(5)
     assert not foreign.is_alive()
+
+
+def test_trace_breakdown_attributes_device_work(chip_smoke):
+    """A request trace's events, as the profiler writes them on the card:
+    each kernel or copy goes to the innermost named range of the thread
+    that launched it (through the correlation id), K1 and K2 by name; the
+    device's busy time is the union of its intervals."""
+    def rng(name, ts, dur, tid=7):
+        return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts,
+                "dur": dur, "tid": tid}
+
+    def launch(corr, ts, tid=7):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 1, "tid": tid, "args": {"correlation": corr}}
+
+    def work(name, corr, ts, dur, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "tid": 99, "args": {"correlation": corr}}
+
+    events = [
+        rng("serve.upload", 0, 1000), launch(1, 10),
+        work("Memcpy HtoD (Pageable -> Device)", 1, 20, 500, "gpu_memcpy"),
+        rng("serve.project", 1000, 200), launch(2, 1010),
+        work("sm90_xmma_gemm", 2, 1100, 100),
+        rng("serve.search", 1200, 3000), launch(3, 1210),
+        work("void binned_scan_tc_kernel<1>", 3, 1300, 2000),
+        launch(4, 1220), work("merge_topc_kernel<16, false>", 4, 3300, 100),
+        rng("fused.rerank", 3500, 500), launch(5, 3600),
+        work("gather_kernel", 5, 3700, 300),
+        launch(6, 3700, tid=8), work("elementwise", 6, 4000, 50),
+        work("orphan", 77, 4100, 10),
+    ]
+    out = chip_smoke.trace_breakdown(events, [0.005, 0.005])
+    ms = out["device_ms"]
+    assert out["requests"] == 2 and out["wall_ms"] == pytest.approx(5.0)
+    assert ms["serve.upload (copy)"] == pytest.approx(0.25)
+    assert ms["serve.project"] == pytest.approx(0.05)
+    assert ms["K1 binned_scan"] == pytest.approx(1.0)
+    assert ms["K2 merge_topc"] == pytest.approx(0.05)
+    assert ms["fused.rerank"] == pytest.approx(0.15)
+    assert ms["outside the named stages"] == pytest.approx(0.025)
+    assert ms["unattributed"] == pytest.approx(0.005)
+    # busy: [20, 520] + [1100, 1200] + [1300, 3300] + [3300, 3400] +
+    # [3700, 4000] + [4000, 4050] + [4100, 4110] = 3060 us over 2 requests
+    assert out["device_busy_ms"] == pytest.approx(1.53)
+    assert out["device_idle_share"] == pytest.approx(1 - 1.53 / 5.0)
+    assert out["host_span_ms"]["serve.search"] == pytest.approx(1.5)

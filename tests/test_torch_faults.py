@@ -160,6 +160,12 @@ def _pairs():
     import gbnns_tpu.search.walker_jax as jwalk
     import gbnns_tpu.search.walker_pallas as jwalkp
     import gbnns_tpu.serve as jserve
+    import gbnns_tpu.dimred.pca as jpca
+    import gbnns_tpu.dimred.train as jtrain
+    import gbnns_tpu.eval.bench as jbench
+    import gbnns_tpu.eval.trace as jtrace
+    import gbnns_tpu.search.ivf as jivf
+    import gbnns_tpu.search.sizing as jsizing
     import gbnns_tpu_torch.kernels.topk as ttopk
     import gbnns_tpu_torch.search.flat as tflat
     import gbnns_tpu_torch.search.gated as tgated
@@ -167,6 +173,12 @@ def _pairs():
     import gbnns_tpu_torch.search.walker as twalk
     import gbnns_tpu_torch.search.walker_payload as twalkp
     import gbnns_tpu_torch.serve as tserve
+    import gbnns_tpu_torch.dimred.pca as tpca
+    import gbnns_tpu_torch.dimred.train as ttrain
+    import gbnns_tpu_torch.eval.bench as tbench
+    import gbnns_tpu_torch.eval.trace as ttrace
+    import gbnns_tpu_torch.search.ivf as tivf
+    import gbnns_tpu_torch.search.sizing as tsizing
 
     return {
         "FusedScanIndex": (JaxFused.__init__, FusedScanIndex.__init__),
@@ -194,6 +206,27 @@ def _pairs():
                                   tgated.GatedScanIndex.search),
         "GraphIndex.search": (jgraph.GraphIndex.search,
                               tgraph.GraphIndex.search),
+        "IVFIndex.build": (jivf.IVFIndex.build, tivf.IVFIndex.build),
+        "IVFIndex.search": (jivf.IVFIndex.search, tivf.IVFIndex.search),
+        "IVFIndex.qslots_for": (jivf.IVFIndex.qslots_for,
+                                tivf.IVFIndex.qslots_for),
+        "ivf_search": (jivf.ivf_search, tivf.ivf_search),
+        "pca_fit": (jpca.pca_fit, tpca.pca_fit),
+        "pca_transform": (jpca.pca_transform, tpca.pca_transform),
+        "train_projection": (jtrain.train_projection,
+                             ttrain.train_projection),
+        "save_projection": (jtrain.save_projection, ttrain.save_projection),
+        "time_fn": (jbench.time_fn, tbench.time_fn),
+        "time_search": (jbench.time_search, tbench.time_search),
+        "sweep": (jbench.sweep, tbench.sweep),
+        "pareto": (jbench.pareto, tbench.pareto),
+        "profile_trace": (jtrace.profile_trace, ttrace.profile_trace),
+        "cost_analysis": (jtrace.cost_analysis, ttrace.cost_analysis),
+        "memory_analysis": (jtrace.memory_analysis, ttrace.memory_analysis),
+        "HbmBreakdown.fits": (jsizing.HbmBreakdown.fits,
+                              tsizing.HbmBreakdown.fits),
+        "HbmBreakdown.as_dict": (jsizing.HbmBreakdown.as_dict,
+                                 tsizing.HbmBreakdown.as_dict),
     }
 
 
@@ -212,7 +245,14 @@ def km_entries():
                                   "FusedScanIndex.search",
                                   "FusedScanIndex.candidates",
                                   "GatedScanIndex.search",
-                                  "GraphIndex.search"])
+                                  "GraphIndex.search", "IVFIndex.build",
+                                  "IVFIndex.search", "IVFIndex.qslots_for",
+                                  "ivf_search", "pca_fit", "pca_transform",
+                                  "train_projection", "save_projection",
+                                  "time_fn", "time_search", "sweep",
+                                  "pareto", "profile_trace", "cost_analysis",
+                                  "memory_analysis", "HbmBreakdown.fits",
+                                  "HbmBreakdown.as_dict"])
 def test_port_takes_every_jax_keyword_in_its_order(name):
     """Every parameter of the JAX entry point is a parameter of the port's,
     in the same order; the port may add its own (``device``, ``stats``)."""

@@ -33,6 +33,9 @@ def _env():
 def test_every_kernel_module_is_checked():
     for name in ("scan_topk", "distance_topk", "gather", "topk", "_build"):
         assert f"gbnns_tpu_torch.kernels.{name}" in MODULES
+    for name in ("search.ivf", "dimred.pca", "dimred.train", "eval.bench",
+                 "eval.trace", "bench", "cli"):
+        assert f"gbnns_tpu_torch.{name}" in MODULES
 
 
 def test_importing_every_port_module_pulls_in_no_forbidden_package():
@@ -136,6 +139,27 @@ def _ctor_gated(base):
     return GatedScanIndex(base, chunk=64, sub=64, fine=4, kmeans_sample=None)
 
 
+def _ctor_ivf(base):
+    from gbnns_tpu_torch.search.ivf import IVFIndex
+    return IVFIndex.build(base, ncent=8)
+
+
+def _ctor_pca(base):
+    from gbnns_tpu_torch.dimred.pca import pca_fit
+    return pca_fit(base, 4)
+
+
+def _ctor_pca_transform(base):
+    from gbnns_tpu_torch.dimred.pca import pca_fit, pca_transform
+    return pca_transform(pca_fit(base, 4, device="cpu"), base)
+
+
+def _ctor_train(base):
+    from gbnns_tpu_torch.dimred.train import TrainConfig, train_projection
+    nbrs = np.tile(np.arange(10, dtype=np.int32), (base.shape[0], 1))
+    return train_projection(base, nbrs, TrainConfig(d_out=4, steps=1))
+
+
 def _ctor_graph_services(base):
     from gbnns_tpu_torch.serve import SearchService
     for engine in ("graph", "graph_pallas"):
@@ -150,7 +174,8 @@ def _ctor_graph_services(base):
                                   _ctor_graph_build, _ctor_kmeans,
                                   _ctor_entries, _ctor_payload,
                                   _ctor_graph_index, _ctor_graph_services,
-                                  _ctor_gated])
+                                  _ctor_gated, _ctor_ivf, _ctor_pca,
+                                  _ctor_pca_transform, _ctor_train])
 def test_entry_points_raise_without_cuda(ctor):
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -190,6 +215,39 @@ def test_cli_serve_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "--base", str(tmp_path / "base.fvecs"),
                   "--engine", "fused", "--no-warm"])
+
+
+def test_headline_bench_refuses_without_cuda():
+    """``python -m gbnns_tpu_torch.bench`` runs on the card unless
+    GBNNS_BENCH_CPU asks for the CPU, and imports no JAX."""
+    _no_cuda()
+    env = {k: v for k, v in _env().items() if k != "GBNNS_BENCH_CPU"}
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, sys\n"
+         "try:\n"
+         "    runpy.run_module('gbnns_tpu_torch.bench', run_name='__main__')\n"
+         "finally:\n"
+         f"    print(sorted({{m.split('.')[0] for m in sys.modules}} & "
+         f"set({FORBIDDEN!r})))\n"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("argv", [
+    ["gt", "--k", "3"], ["train", "--method", "pca", "--d-out", "4"]])
+def test_cli_compute_subcommands_raise_without_cuda(tmp_path, argv):
+    _no_cuda()
+    from gbnns_tpu_torch import cli
+    from gbnns_tpu_torch.io.vecs import write_fvecs
+
+    write_fvecs(str(tmp_path / "base.fvecs"), _small())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([argv[0], "--base", str(tmp_path / "base.fvecs"),
+                  "--query", str(tmp_path / "base.fvecs"), *argv[1:],
+                  "--out", str(tmp_path / "out")])
 
 
 def test_cli_build_raises_without_cuda(tmp_path):
