@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
 scan (binned and shifted), the cluster-gated scan, the IVF index, the
-projection trainer, the exact fused kNN and the graph walker.
+projection trainer, the exact fused kNN, the graph walker, the experiment
+driver and the sharded engine.
 
     python3 chip_smoke.py
 
@@ -102,7 +103,27 @@ each printing its wall time:
    at ef = 32, 48, 64 (submit() and HTTP), with R@1, R@10, K3 launches per
    request (one per hop) and QPS; R@10 at ef = 64 at least 0.95 and not
    falling as ef grows;
-14. teardown: services stopped, HTTP servers shut down, threads joined.
+14. the experiment driver: run_pipeline on configs/sift1m_dr32.json at
+   full width (its synthetic SIFT-like fallback, 1M x 128 and 10,000
+   queries; the linear 128→32 projection trained for 2,000 steps with
+   validation every 500; the exact reduced-space graph; graph_pallas swept
+   over ef 32, 64, 128 with 1,024 centroid entries), writing into the
+   ignored chiprun_out/pipeline_sift1m_dr32/ (never results/); the
+   dataset's source, each stage's seconds and every row, with K3's
+   launches set to 0 before the run and read after; R@10 at ef 64 at least
+   0.95 and not falling as ef grows; K3 against its plain version on rows
+   of the walker's f32 payload shape (K 32, d 32, 4 rows a query);
+15. the sharded engine: make_mesh(8) with all 8 shards on this one card,
+   over the contract corpus: fused bf16 and int8 at ef 32 (no graph), then
+   graph_pallas at ef 32 (per-shard exact graphs, bf16 payloads, 64
+   centroid entries a shard), each over all queries with the launch counts
+   set to 0 before and read after (K1 and K2 once a shard, on the tensor
+   cores; K3 once a hop a shard), R@1, R@10 (at least 0.95 each) and the
+   median search time; shard 0's K1 (131,072 rows, bins of 512) and K2
+   (c = 32) against their plain versions with their records. Every time
+   is of 8 shards sharing one card: the per-shard kernels and the merge,
+   not the speed of several cards;
+16. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -173,6 +194,19 @@ SHIFTED_KIND_B = 2048
 KNN_Q = BUILD_CHUNK
 KNN_K = GRAPH_K + 1
 KNN_SLICE = 1024
+# the experiment driver on configs/sift1m_dr32.json (its synthetic SIFT-like
+# fallback: 1M x 128, 10,000 queries), its graph gate at ef 64 (PERF.md §2),
+# and where it writes: an ignored directory, never results/
+PIPELINE_CONFIG = ROOT / "configs" / "sift1m_dr32.json"
+PIPELINE_OUT = ROOT / "chiprun_out" / "pipeline_sift1m_dr32"
+PIPELINE_GATE_EF = 64
+# the sharded engine on the contract corpus: 8 shards, all on the one card,
+# at ef 32 with 64 centroid entries a shard (the pipeline's _sharded_sweep),
+# and the gate of MULTICHIP_r05.json / __graft_entry__.py
+SHARDS = 8
+SHARDED_EF = 32
+SHARDED_NCENT = 64
+SHARDED_R10_MIN = 0.95
 SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
 SHIFTED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/shifted_scan.cu"
 GATED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gated_topm.cu"
@@ -499,9 +533,11 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
     return records
 
 
-def gather_check(payload, n_rows: int, device, records):
-    """K3 against its plain version on ``n_rows`` rows of the serving
-    payload, ids from a seeded generator: bit-exact."""
+def gather_check(payload, n_rows: int, device, records,
+                 name: str = "row_gather"):
+    """K3 against its plain version on ``n_rows`` rows of ``payload``, ids
+    from a seeded generator: bit-exact. Its record goes under ``name``,
+    keeping the launches a main path counted there."""
     import numpy as np
     import torch
 
@@ -513,7 +549,7 @@ def gather_check(payload, n_rows: int, device, records):
     ref = gather.row_gather_plain(payload.data, idx)
     torch.cuda.synchronize()
     equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
-    say(f"K3 row_gather vs plain ({n_rows} rows of {payload.words * 4} B): "
+    say(f"K3 {name} vs plain ({n_rows} rows of {payload.words * 4} B): "
         f"bit-exact {equal}")
     check(equal, "K3 differs from its plain version")
     # the walker's call: its ids need no check
@@ -526,22 +562,24 @@ def gather_check(payload, n_rows: int, device, records):
     fns = {"row_gather": lambda: gather.row_gather(payload.data, idx,
                                                    check_ids=False),
            "index_select": lambda: torch.index_select(payload.data, 0, idx)}
-    rounds = {name: [] for name in fns}
+    rounds = {fn: [] for fn in fns}
     for r in range(9):
-        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            rounds[name].append(time_ms(fns[name], 20))
-    med = {name: float(np.median(t)) for name, t in rounds.items()}
+        for fn in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            rounds[fn].append(time_ms(fns[fn], 20))
+    med = {fn: float(np.median(t)) for fn, t in rounds.items()}
     row_bytes = payload.words * 4
     b_ms, b_by = bound_ms(2 * n_rows * row_bytes + n_rows * 4, 0.0,
                           "bfloat16")
-    records["row_gather"] = dict(
-        name="row_gather", route="cuda", source=GATHER_SOURCE,
-        replaces=REPLACES["row_gather"], launches=None, max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, median_ms=med["row_gather"],
+    rec = records.setdefault(name, {})
+    rec.update(
+        name=name, route="cuda", source=GATHER_SOURCE,
+        replaces=REPLACES["row_gather"], launches=rec.get("launches"),
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, median_ms=med["row_gather"],
         library_median_ms=med["index_select"])
-    say(f"K3 [{n_rows} x {row_bytes} B]: {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, index_select {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+    say(f"K3 {name} [{n_rows} x {row_bytes} B]: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); "
         f"{2 * n_rows * row_bytes / ms / 1e6:.0f} GB/s moved; medians of "
         f"nine interleaved rounds of 20 calls: K3 "
         f"{med['row_gather']:.4f} ms, index_select "
@@ -1608,14 +1646,202 @@ def serve_graph(base, query, base_lo, gt, trained, graph, entries, device,
     return outs
 
 
+def pipeline_phase(graph, base_lo, device, records, targets: bool,
+                   out_dir: pathlib.Path, scale: float,
+                   steps: int | None) -> dict:
+    """The experiment driver at full width: run_pipeline on
+    configs/sift1m_dr32.json (at ``scale`` of its 1M rows; ``steps``
+    trainer steps where given, else the config's 2,000), writing to
+    ``out_dir``, with K3's launches counted from 0 before the run and read
+    after; then K3 against its plain version on rows of the walker's f32
+    payload shape (K 32, d 32), packed from the contract graph."""
+    import numpy as np
+
+    from gbnns_tpu_torch.config import ExperimentConfig
+    from gbnns_tpu_torch.kernels import gather
+    from gbnns_tpu_torch.pipeline import run_pipeline
+    from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
+
+    cfg = ExperimentConfig.load(str(PIPELINE_CONFIG), out_dir=str(out_dir),
+                                scale=scale)
+    if steps is not None:
+        cfg.dimred.steps = steps
+        cfg.dimred.eval_every = max(1, steps // 4)
+    check(pathlib.Path(cfg.out_dir).resolve() != ROOT / "results",
+          "the pipeline phase must not write into results/")
+    gather.reset_launches()
+    t0 = time.perf_counter()
+    out = run_pipeline(cfg, device=device)
+    secs = time.perf_counter() - t0
+    launches = gather.launches["row_gather"]
+    s = out["summary"]
+    trained = out["artifacts"]["trained"]
+    say(f"run_pipeline({cfg.name}): {secs:.2f} s; dataset {cfg.dataset} "
+        f"[{out['source']}] base ({s['n_base']}, {s['dim']}), "
+        f"{s['results'][0]['n_queries']} queries; stage seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["stage_s"].items())
+        + f"; projection {s['method']} {s['dim']}->{s['d_out']}, trained "
+        f"{len(trained['losses'])} steps, best step "
+        f"{trained.get('best_step')}; graph {out['graph'].shape} built in "
+        f"{s['build_time_s']:.2f} s; K3 launches {launches}")
+    r10 = []
+    for r in s["results"]:
+        say(f"pipeline {cfg.name} ef={r['ef']}: R@1={r['recall_at_1']:.4f} "
+            f"R@10={r['recall_at_10']:.4f} QPS={r['qps']:,.0f} (pipelined, "
+            f"{r['n_queries']} queries a batch) latency "
+            f"{r['latency_ms']:.2f} ms dist/q={r['dist_comps_per_query']:.1f} "
+            f"hops={r['hops']} walker={r['extra']['walker']}")
+        r10.append(r["recall_at_10"])
+    check(all(np.isfinite(r10)) and len(r10) == len(cfg.search.efs),
+          f"pipeline results malformed: {r10}")
+    records.setdefault("row_gather[f32]", {})["launches"] = launches
+    if device.type == "cuda":
+        check(launches > 0, "the pipeline's walk launched no K3")
+    if targets:
+        at = dict(zip(cfg.search.efs, r10))
+        check(at[PIPELINE_GATE_EF] >= GRAPH_R10_MIN,
+              f"pipeline R@10 {at[PIPELINE_GATE_EF]:.4f} < {GRAPH_R10_MIN} "
+              f"at ef={PIPELINE_GATE_EF}")
+        check(all(b >= a for a, b in zip(r10, r10[1:])),
+              f"pipeline R@10 falls as ef grows: {r10}")
+    if device.type == "cuda":
+        payload = pack_hop_payload(graph, base_lo, vec_dtype="float32",
+                                   device=device)
+        # a hop gathers expand (4) rows a query
+        gather_check(payload, 4 * s["results"][0]["n_queries"], device,
+                     records, name="row_gather[f32]")
+        del payload
+    return out
+
+
+def sharded_phase(base, query, base_lo, gt, trained, device, records,
+                  targets: bool, timed: int) -> None:
+    """The sharded engine over SHARDS shards that all lie on this one card:
+    fused bf16 and int8 (no graph), then graph_pallas (per-shard graphs,
+    payloads and centroid entries), each at ef SHARDED_EF over every query
+    with the launch counts set to 0 before and read after; one shard's K1
+    and K2 against their plain versions. The times measure the per-shard
+    kernels and the merge on one card, not the speed of several cards."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.dimred.train import project
+    from gbnns_tpu_torch.eval.bench import block_until_ready
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels import gather
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.search import sharded as sh
+
+    note = f"{SHARDS} shards on one card"
+    mesh = sh.make_mesh(SHARDS, device=device)
+    qlo = project(trained, query)
+
+    def run(idx, engine, label, counters, **kw):
+        def search():
+            return sh.sharded_search(idx, qlo, 10, ef=SHARDED_EF,
+                                     engine=engine, queries_full=query, **kw)
+        for module in counters:
+            module.reset_launches()
+        ids, dists = search()
+        ids = ids.cpu().numpy()
+        counts = {name: module.launches[name]
+                  for module, names in counters.items() for name in names}
+        by_cores = route_counts(st, "binned_scan")
+        check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+              and ids.max() < base.shape[0]
+              and bool(torch.isfinite(dists).all()),
+              f"sharded {label}: results out of range")
+        r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+        secs = []
+        for _ in range(min(timed, 5)):
+            t0 = time.perf_counter()
+            block_until_ready(search())
+            secs.append(time.perf_counter() - t0)
+        med = float(np.median(secs))
+        say(f"sharded {label} ef={SHARDED_EF} ({note}): R@1={r1:.4f} "
+            f"R@10={r10:.4f}, {med * 1e3:.2f} ms a search of "
+            f"{query.shape[0]} queries (median of {len(secs)}, host clock, "
+            f"synchronized; QPS {query.shape[0] / med:,.0f}) launches "
+            f"{counts}")
+        if targets:
+            check(r10 >= SHARDED_R10_MIN,
+                  f"sharded {label} R@10 {r10:.4f} < {SHARDED_R10_MIN}")
+        return counts, by_cores
+
+    t0 = time.perf_counter()
+    idx = sh.build_sharded_index(base, GRAPH_K, mesh, base_lo=base_lo,
+                                 with_graph=False)
+    f_chunk, f_bin, f_pad = sh.fused_geometry(idx.n_shard, SHARDED_EF)
+    say(f"sharded scan index ({note}, {SHARDS} x {idx.n_shard} rows): "
+        f"{time.perf_counter() - t0:.2f} s; per-shard scan {f_pad} rows in "
+        f"bins of {f_bin} (chunk {f_chunk})")
+    for dtype in ("bfloat16", "int8"):
+        counts, by_cores = run(idx, "fused", f"fused {dtype}",
+                               {st: ("binned_scan", "merge_topc")},
+                               scan_dtype=dtype)
+        k1 = f"binned_scan[sharded,{dtype}]"
+        k2 = f"merge_topc[sharded,{dtype},c={SHARDED_EF}]"
+        records.setdefault(k1, {})["launches"] = counts["binned_scan"]
+        records.setdefault(k2, {})["launches"] = counts["merge_topc"]
+        width = st.scan_width(base_lo.shape[1])
+        kind = torch.int8 if dtype == "int8" else torch.bfloat16
+        main_path_route(records, k1, "binned_scan",
+                        st.scan_cores(kind, width, f_bin), by_cores, device,
+                        f"sharded fused {dtype}")
+        if device.type != "cuda":
+            continue
+        check(counts["binned_scan"] == SHARDS
+              and counts["merge_topc"] == SHARDS,
+              f"the sharded {dtype} search did not launch K1 and K2 once a "
+              f"shard: {counts}")
+        q0 = torch.from_numpy(qlo).to(device)
+        args = sh.fused_operands(q0, idx.base_lo[0], metric="l2",
+                                 scan_dtype=dtype, f_pad=f_pad)
+        got, rec = _scan_check(st, args, dict(bin_size=f_bin, packed=True),
+                               f"sharded,{dtype}")
+        if dtype == "bfloat16":
+            # yardstick: the bare score product of one shard
+            rec["library_ms"] = time_ms(
+                lambda: torch.matmul(args[1], args[0].T), 3)
+        records[k1] = {**rec, "launches": counts["binned_scan"],
+                       "launches_by_cores": records[k1]["launches_by_cores"],
+                       "shards_on_one_card": SHARDS}
+        mrec = _merge_check(st, *got, min(SHARDED_EF, got[0].shape[0]),
+                            f"sharded,{dtype},c={SHARDED_EF}")
+        records[k2] = {**mrec, "launches": counts["merge_topc"],
+                       "shards_on_one_card": SHARDS}
+        del got, args
+        torch.cuda.empty_cache()
+    del idx
+    t0 = time.perf_counter()
+    idx = sh.build_sharded_index(base, GRAPH_K, mesh, base_lo=base_lo,
+                                 with_payload=True, ncent=SHARDED_NCENT)
+    say(f"sharded graph index ({note}): {time.perf_counter() - t0:.2f} s "
+        f"(per-shard exact graphs, bf16 payloads, {SHARDED_NCENT} centroid "
+        f"entries a shard)")
+    counts, _ = run(idx, "graph_pallas", "graph_pallas",
+                    {gather: ("row_gather",)})
+    records.setdefault("row_gather[sharded]", {})["launches"] = \
+        counts["row_gather"]
+    if device.type == "cuda":
+        check(counts["row_gather"] > 0, "the sharded walk launched no K3")
+        # a shard's hop gathers expand (4) rows a query of its payload
+        gather_check(idx.payload[0], 4 * query.shape[0], device, records,
+                     name="row_gather[sharded]")
+
+
 def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
          proj_file: str = "bench_proj_n1000000_d128x32_s600_sel_seed1.npz",
          targets: bool = True, timed: int = 10,
-         train_steps: int = TRAIN_STEPS) -> dict:
+         train_steps: int = TRAIN_STEPS,
+         pipeline_out: pathlib.Path = PIPELINE_OUT,
+         pipeline_steps: int | None = None) -> dict:
     """Run every phase; ``targets`` holds recall and overlap to the
     reference figures, which belong to the default sizes only; ``timed``
     requests are timed per served configuration; ``train_steps`` are the
-    trainer's."""
+    trainer's. The pipeline phase runs its config at n / 1M of its scale,
+    with ``pipeline_steps`` trainer steps (None: the config's), writing
+    to ``pipeline_out``."""
     import torch
 
     from gbnns_tpu_torch._device import resolve_device
@@ -1668,6 +1894,13 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
     with Phase("serve graph_pallas"):
         serve_graph(base, query, base_lo, gt, trained, graph, entries, device,
                     records, targets, timed)
+    with Phase("pipeline sift1m_dr32"):
+        pipeline_phase(graph, base_lo, device, records, targets,
+                       pipeline_out, n / 1_000_000, pipeline_steps)
+    del graph, entries
+    with Phase("sharded"):
+        sharded_phase(base, query, base_lo, gt, trained, device, records,
+                      targets, timed)
     with Phase("teardown"):
         if device.type == "cuda":
             torch.cuda.synchronize()

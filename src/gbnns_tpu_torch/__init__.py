@@ -6,11 +6,9 @@ The JAX package stays beside it as the reference; this package imports none
 of it, nor JAX. Module names follow the JAX package's, so each module's
 counterpart is found by name (``search/walker.py`` is ``walker_jax.py``,
 ``search/walker_payload.py`` is ``walker_pallas.py``,
-``kernels/distance_topk.py`` is ``distance_topk_pallas.py``). Ported so far
-(ROADMAP.md): the fused-scan serving path (binned and shifted), the graph
-serving path, the cluster-gated scan, the exact fused kNN, the IVF index,
-PCA and projection training, and the headline benchmark (``bench.py``);
-every Pallas kernel of the JAX package has its CUDA counterpart.
+``kernels/distance_topk.py`` is ``distance_topk_pallas.py``). Every module
+of the JAX package is ported (ROADMAP.md lists what stays open), and every
+Pallas kernel has its CUDA counterpart.
 
   io/        fvecs/ivecs codecs, dataset registry, synthetic data
   kernels/   distances, exact kNN (chunked, and the fused exact kNN), the
@@ -20,10 +18,12 @@ every Pallas kernel of the JAX package has its CUDA counterpart.
   build/     kNN-graph build and its host passes, k-means
   dimred/    projection models, PCA, the triplet trainer and checkpoints
   search/    re-rank, flat index, IVF index, cluster-gated scan index,
-             centroid entries, beam walkers, graph index, device-memory
-             sizing
-  eval/      recall, exact ground truth, QPS timing, tracing
+             centroid entries, beam walkers, graph index, sharded search
+             over a mesh of devices, device-memory sizing
+  eval/      recall, exact ground truth, QPS timing, tracing, plots
+  config.py  experiment configuration; pipeline.py the experiment driver
   serve.py   HTTP search service; cli.py its command line
+  native.py  ctypes binding of the C++ reference engine (native/)
   bench.py   the headline benchmark (python -m gbnns_tpu_torch.bench)
 
 Entry points take ``device=None``, which means the card: without a CUDA
@@ -54,6 +54,13 @@ _EXPORTS = {
     "exact_ground_truth": "gbnns_tpu_torch.eval.recall",
     "recall_at_k": "gbnns_tpu_torch.eval.recall",
     "resolve_device": "gbnns_tpu_torch._device",
+    # sharded search (one process drives every shard's device)
+    "make_mesh": "gbnns_tpu_torch.search.sharded",
+    "build_sharded_index": "gbnns_tpu_torch.search.sharded",
+    "sharded_search": "gbnns_tpu_torch.search.sharded",
+    # experiment driver
+    "ExperimentConfig": "gbnns_tpu_torch.config",
+    "run_pipeline": "gbnns_tpu_torch.pipeline",
 }
 
 __all__ = ["__version__", *_EXPORTS]

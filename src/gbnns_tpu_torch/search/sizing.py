@@ -104,3 +104,30 @@ def fused_index_hbm(n: int, d: int, d_lo: int, *, scan_itemsize: int = 2,
         reduced_bytes=n * d_lo * scan_itemsize,
         rerank_bytes=n * d * rerank_itemsize,
         graph_bytes=0, norms_bytes=n * 4)
+
+
+def sharded_per_chip_hbm(n: int, n_chips: int, d: int, d_lo: int, K: int, *,
+                         engine: str = "graph_pallas",
+                         vec_dtype: str = "bfloat16",
+                         rerank_itemsize: int = 4,
+                         row_words: int = ROW_WORDS) -> HbmBreakdown:
+    """Resident bytes on each device when the corpus shards n/P per device
+    (``search.sharded``: contiguous shards, queries replicated, the (B, k)
+    id/distance pairs the only cross-shard traffic, which is negligible
+    next to the corpora). ``row_words=1024`` gives the JAX package's
+    figure."""
+    n_shard = -(-n // n_chips)
+    if engine == "fused":
+        b = fused_index_hbm(n_shard, d, d_lo,
+                            rerank_itemsize=rerank_itemsize)
+        # a sharded index keeps base_lo f32 and casts it at search time
+        return HbmBreakdown(**{**b.__dict__, "reduced_bytes": n_shard * d_lo * 4,
+                               "engine": "sharded_fused"})
+    if engine == "graph_pallas":
+        g = graph_index_hbm(n_shard, d, d_lo, K, vec_dtype=vec_dtype,
+                            rerank_itemsize=rerank_itemsize,
+                            row_words=row_words)
+        # a sharded index also keeps the (n_shard, K) int32 local graph
+        return HbmBreakdown(**{**g.__dict__, "graph_bytes": n_shard * K * 4,
+                               "engine": "sharded_graph_pallas"})
+    raise ValueError(f"unknown engine {engine!r}")

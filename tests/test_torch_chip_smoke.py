@@ -25,12 +25,13 @@ def chip_smoke():
     return module
 
 
-def test_rehearsal_on_cpu(chip_smoke, capsys):
+def test_rehearsal_on_cpu(chip_smoke, capsys, tmp_path):
     before = set(threading.enumerate())
     records = chip_smoke.main(
         "cpu", n=20000, nq=1024,
         proj_file="bench_proj_n20000_d128x32_s600_seed1.npz", targets=False,
-        timed=2, train_steps=40)
+        timed=2, train_steps=40, pipeline_out=tmp_path / "pipeline",
+        pipeline_steps=40)
     out = capsys.readouterr().out
     assert "ground truth: 1024/1024 rows equal" in out
     assert out.count("1.0000 of rows equal to a direct search") == 3
@@ -59,23 +60,41 @@ def test_rehearsal_on_cpu(chip_smoke, capsys):
                             "merge_topc[bfloat16,c=12]",
                             "merge_topc[int8,c=16]", "merge_topc[build,c=33]",
                             "row_gather", "gated_topm", "shifted_scan",
-                            "knn_topk"}
+                            "knn_topk", "row_gather[f32]",
+                            "binned_scan[sharded,bfloat16]",
+                            "binned_scan[sharded,int8]",
+                            "merge_topc[sharded,bfloat16,c=32]",
+                            "merge_topc[sharded,int8,c=32]",
+                            "row_gather[sharded]"}
     assert all(r["launches"] == 0 for r in records.values())  # CPU: plain
     # K1, T3 and T4 on the main paths: their route and their launches by
     # route (none on the CPU; the timed kernel checks, earlier_ms among
     # them, need the card)
     for name in ("binned_scan[bfloat16]", "binned_scan[int8]",
                  "binned_scan[bfloat16,packed]", "shifted_scan",
-                 "gated_topm"):
+                 "gated_topm", "binned_scan[sharded,bfloat16]",
+                 "binned_scan[sharded,int8]"):
         rec = records[name]
         assert rec["cores"] == "tensor", name
         assert rec["launches_by_cores"] == {"tensor": 0, "cuda": 0}, name
     for what in ("serve fused bfloat16", "serve fused int8", "graph build",
-                 "fused shifted"):
+                 "fused shifted", "sharded fused bfloat16",
+                 "sharded fused int8"):
         assert f"{what}: " in out and "routed to the tensor cores" in out
     for probes in (4, 8, 16, 32):
         assert (f"gated probes={probes}: gated_topm routed to the tensor "
                 f"cores") in out
+    # the experiment driver: the config's sweep at 20,000 rows and 800
+    # queries, its stage seconds, its results under tmp_path only
+    for ef in (32, 64, 128):
+        assert f"pipeline sift1m_dr32 ef={ef}: R@1=" in out
+    assert "[synthetic] base (20000, 128), 800 queries; stage seconds data" \
+        in out
+    assert (tmp_path / "pipeline" / "sift1m_dr32.json").exists()
+    # the sharded engine: 8 shards of 2,500 rows on the one device
+    assert "sharded scan index (8 shards on one card, 8 x 2500 rows)" in out
+    for label in ("fused bfloat16", "fused int8", "graph_pallas"):
+        assert f"sharded {label} ef=32 (8 shards on one card): R@1=" in out
     assert set(threading.enumerate()) <= before
 
 
@@ -160,6 +179,39 @@ def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
     assert merge["bound_by"] == "bytes"
     assert abs(merge["bound_ms"] - (R * B * 4 + B * c * 40)
                / chip_smoke.PEAK_BYTES_S * 1e3) < 1e-12
+
+
+@pytest.mark.parametrize("name", ["row_gather", "row_gather[f32]",
+                                  "row_gather[sharded]"])
+def test_gather_check_records_under_its_name(chip_smoke, monkeypatch, capsys,
+                                              name):
+    """The card-only check of K3 on a payload, on the CPU with the timer
+    replaced: its record goes under the name asked for, with every key of
+    the kernels' line, and keeps the launches a main path counted."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.search.walker_payload import pack_hop_payload
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(6)
+    base = rng.normal(size=(256, 8)).astype(np.float32)
+    graph = rng.integers(0, 256, size=(256, 4)).astype(np.int32)
+    payload = pack_hop_payload(graph, base, device="cpu")
+    records = {name: {"launches": 9}}
+    chip_smoke.gather_check(payload, 512, torch.device("cpu"), records,
+                            name=name)
+    assert set(records) == {name}
+    rec = records[name]
+    assert rec["name"] == name and rec["launches"] == 9
+    assert {"route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"} <= set(rec)
+    assert rec["bound_ms"] == pytest.approx(
+        (2 * 512 * payload.words * 4 + 512 * 4) / chip_smoke.PEAK_BYTES_S
+        * 1e3)
+    assert f"K3 {name} vs plain (512 rows" in capsys.readouterr().out
 
 
 def test_gated_check_runs_its_kernel(chip_smoke, monkeypatch, capsys):
@@ -327,6 +379,8 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
                         lambda *a, **k: (None, None, None))
     monkeypatch.setattr(chip_smoke, "walker_checks", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "serve_graph", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "pipeline_phase", lambda *a, **k: {})
+    monkeypatch.setattr(chip_smoke, "sharded_phase", lambda *a, **k: None)
     try:
         chip_smoke.main("cpu", targets=False)
         left = threading.Thread(target=stop.wait, daemon=True)

@@ -34,7 +34,8 @@ def test_every_kernel_module_is_checked():
     for name in ("scan_topk", "distance_topk", "gather", "topk", "_build"):
         assert f"gbnns_tpu_torch.kernels.{name}" in MODULES
     for name in ("search.ivf", "dimred.pca", "dimred.train", "eval.bench",
-                 "eval.trace", "bench", "cli"):
+                 "eval.trace", "bench", "cli", "config", "pipeline",
+                 "eval.plot", "search.sharded", "search.sizing", "native"):
         assert f"gbnns_tpu_torch.{name}" in MODULES
 
 
@@ -160,6 +161,17 @@ def _ctor_train(base):
     return train_projection(base, nbrs, TrainConfig(d_out=4, steps=1))
 
 
+def _ctor_mesh(base):
+    from gbnns_tpu_torch.search.sharded import make_mesh
+    return make_mesh(2)
+
+
+def _ctor_pipeline(base):
+    from gbnns_tpu_torch.config import ExperimentConfig
+    from gbnns_tpu_torch.pipeline import compute_gt
+    return compute_gt(ExperimentConfig(), base, base[:4])
+
+
 def _ctor_graph_services(base):
     from gbnns_tpu_torch.serve import SearchService
     for engine in ("graph", "graph_pallas"):
@@ -175,7 +187,8 @@ def _ctor_graph_services(base):
                                   _ctor_entries, _ctor_payload,
                                   _ctor_graph_index, _ctor_graph_services,
                                   _ctor_gated, _ctor_ivf, _ctor_pca,
-                                  _ctor_pca_transform, _ctor_train])
+                                  _ctor_pca_transform, _ctor_train,
+                                  _ctor_mesh, _ctor_pipeline])
 def test_entry_points_raise_without_cuda(ctor):
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
