@@ -23,9 +23,18 @@ each printing its wall time:
    for bf16, fp16 and int8 at d = 32; CUDA cores for f32 and d = 160),
    with its time, the CUDA-core kernel's on the same inputs (the only
    route before the tensor-core redesign), the plain version's, one
-   PyTorch library call's and the least time the card could take (bound); the f32 and fp16 kinds, on no engine of the
+   PyTorch library call's (int8 and f32: torch._int_mm and an fp32
+   torch.matmul over 8 blocks of the corpus, summed) and the least time
+   the card could take (bound); the f32 and fp16 kinds, on no engine of the
    service, then answer all queries through FusedScanIndex.search, with
-   their launch counts (by route as well) and R@10;
+   their launch counts (by route as well) and R@10. Then T1's epilogues,
+   binned_scan called with JAX's keywords on the projected contract corpus
+   unscaled (bf16 at the serving shape: unprescaled l2 packed and
+   unpacked, ip packed, l2 packed shifted by ‖q‖² (the flip-free key),
+   fp16 l2 packed), each once with its launch counted on its route, then
+   against its plain version with its record; the flip-free key's time
+   against the flipped one's on an earlier line; the CUDA-core route on
+   2,048 unprescaled f32 queries and at d = 160;
 4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
    (c = 16): requests through submit() and HTTP /search, /search_raw on an
    ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
@@ -208,6 +217,7 @@ SHARDED_EF = 32
 SHARDED_NCENT = 64
 SHARDED_R10_MIN = 0.95
 SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
+K1_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_k1.cuh"
 SHIFTED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/shifted_scan.cu"
 GATED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gated_topm.cu"
 GATHER_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gather.cu"
@@ -380,12 +390,13 @@ def main_path_route(records, name: str, kernel: str, cores: str,
 
 
 def _scan_check(st, args, kw: dict, label: str, plain_iters: int = 2):
-    """K1 on ``args = (q, x, addvec, alpha)`` and options ``kw`` against its
-    plain version, on the route ``scan_cores`` gives it (the launch is
-    counted there); returns the scan's outputs and its record (times,
-    bound, and ``earlier_ms``: the CUDA-core kernel on the same inputs,
-    the only route before the tensor-core redesign; the library yardstick
-    is filled by the caller)."""
+    """K1 on ``args = (q, x, addvec, qshift)`` (qshift: the int8 scan's
+    alpha, a float scan's shift, or None) and ``binned_scan`` keywords
+    ``kw`` against its plain version, on the route ``scan_cores`` gives it
+    (the launch is counted there); returns the scan's outputs and its
+    record (times, bound, and ``earlier_ms``: the CUDA-core kernel on the
+    same inputs, the only route before the tensor-core redesign; the
+    library yardstick is filled by the caller)."""
     import torch
 
     q_scan, x, _, alpha = args
@@ -413,7 +424,7 @@ def _scan_check(st, args, kw: dict, label: str, plain_iters: int = 2):
     dtype = str(x.dtype).removeprefix("torch.")
     b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
     name = f"binned_scan[{label}]"
-    rec = dict(name=name, route="cuda", source=SCAN_SOURCE,
+    rec = dict(name=name, route="cuda", source=K1_SOURCE,
                replaces=REPLACES["binned_scan"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None, cores=cores,
@@ -458,10 +469,24 @@ def _merge_check(st, vals, ids, c: int, label: str) -> dict:
 
 
 def _index_args(idx, qlo):
-    """The scan operands and options of FusedScanIndex ``idx`` on ``qlo``."""
+    """The scan operands and keywords of FusedScanIndex ``idx`` on ``qlo``
+    (bin-major winners, as its search takes them)."""
     q_scan, alpha = idx.scan_queries(qlo)
     return ((q_scan, idx.x_lo, idx.addvec, alpha),
-            dict(bin_size=idx.bin_size, packed=idx.packed))
+            dict(idx.scan_kw(), transpose=False))
+
+
+def chunked_ms(fn, x, rows: int, iters: int = 3) -> float:
+    """Device time of ``fn(block)`` over ``x`` in blocks of ``rows`` rows,
+    the blocks one after another (a score matrix of the whole corpus does
+    not fit on the card)."""
+    blocks = [x[r:r + rows] for r in range(0, x.shape[0], rows)]
+    return time_ms(lambda: [fn(b) for b in blocks], iters)
+
+
+# the chunked yardsticks of the scans whose whole score matrix would not
+# fit: 8 blocks of the 1,015,808-row corpus (int32 or f32 scores, 8.3 GB)
+YARDSTICK_ROWS = 126976
 
 
 def kernel_checks(base, query, base_lo, gt, trained, device, records,
@@ -476,6 +501,7 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
     from gbnns_tpu_torch.dimred.train import projector
     from gbnns_tpu_torch.eval.recall import recall_at_k
     from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.kernels.distance import exact_fp32
 
     qf = torch.from_numpy(query).to(device)
     qlo = projector(trained)(qf)
@@ -487,9 +513,20 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
             # yardstick: the bare score product, (n_pad, B) bf16 in memory
             rec["library_ms"] = time_ms(
                 lambda: torch.matmul(idx.x_lo, args[0].T), 3)
-            torch.cuda.empty_cache()
-        # int8: an int8 product's int32 scores would take 65 GB; f32: its
-        # f32 scores 66 GB. No single library call fits: library_ms null.
+        elif dtype == "int8":
+            # int8: the int32 scores of the whole corpus would take 65 GB;
+            # torch._int_mm over blocks whose scores fit, summed
+            qt = args[0].T
+            rec["library_ms"] = chunked_ms(
+                lambda b: torch._int_mm(b, qt), idx.x_lo, YARDSTICK_ROWS)
+        else:
+            # f32 (66 GB of scores): fp32 torch.matmul over blocks, TF32
+            # off, as T6's yardstick
+            with exact_fp32():
+                qt = args[0].T
+                rec["library_ms"] = chunked_ms(
+                    lambda b: torch.matmul(b, qt), idx.x_lo, YARDSTICK_ROWS)
+        torch.cuda.empty_cache()
         say(f"K1 [{dtype}] library {rec['library_ms']} ms")
         records[rec["name"]] = rec
         if dtype in ("float32", "float16"):
@@ -526,11 +563,136 @@ def kernel_checks(base, query, base_lo, gt, trained, device, records,
     wt = torch.from_numpy(w).to(device)
     lo160 = (torch.from_numpy(base).to(device) @ wt).cpu().numpy()
     idx = st.FusedScanIndex(base, lo160, device=device)
-    _scan_check(st, *_index_args(
-        idx, torch.from_numpy(query[:2048]).to(device) @ wt), "bfloat16,d=160")
-    del idx, lo160
+    q160 = torch.from_numpy(query[:2048]).to(device) @ wt
+    _scan_check(st, *_index_args(idx, q160), "bfloat16,d=160")
+    del idx
+    torch.cuda.empty_cache()
+    epilogue_checks(base_lo, qlo, device, records, lo160=lo160, q160=q160)
+    del lo160, q160
     torch.cuda.empty_cache()
     return records
+
+
+# T1's epilogues at the serving shape, on the route scan_cores gives each:
+# (label, kind, binned_scan keywords, shifted by ‖q_lo‖²)
+EPILOGUES = (
+    ("unprescaled,l2,packed", "bfloat16", dict(metric="l2"), False),
+    ("unprescaled,l2", "bfloat16", dict(metric="l2", packed=False), False),
+    ("unprescaled,ip,packed", "bfloat16", dict(metric="ip"), False),
+    ("shifted,l2,packed", "bfloat16", dict(metric="l2"), True),
+    ("unprescaled,float16,l2,packed", "float16", dict(metric="l2"), False),
+)
+EPILOGUE_CUDA_B = 2048      # the CUDA-core checks' queries
+
+
+def _epilogue_operands(lo, q, kind, metric: str, shifted: bool):
+    """``binned_scan(q, x, addvec, qshift)``'s operands as a JAX caller of
+    the unprescaled scan builds them from the rows ``lo`` (n, d) f32 numpy
+    and the queries ``q`` (B, d) on the card: x the rows in ``kind``, padded
+    with zero rows to a multiple of the 16,384-row chunk, addvec their f32
+    norms (l2) or 0 (ip), +inf on the padding, q in ``kind``, qshift
+    ‖q‖² of the f32 queries."""
+    import numpy as np
+    import torch
+
+    n, d = lo.shape
+    n_pad = -(-n // 16384) * 16384
+    x = torch.zeros((n_pad, d), dtype=kind, device=q.device)
+    x[:n] = torch.from_numpy(np.ascontiguousarray(lo)).to(q.device).to(kind)
+    add = torch.full((n_pad,), float("inf"), device=q.device)
+    add[:n] = ((torch.from_numpy(lo).to(q.device) ** 2).sum(-1)
+               if metric == "l2" else 0.0)
+    qshift = (q.float() ** 2).sum(-1) if shifted else None
+    return q.to(kind), x, add, qshift
+
+
+def epilogue_checks(base_lo, qlo, device, records, *, lo160=None,
+                    q160=None) -> None:
+    """T1's unprescaled and shifted epilogues (binned_scan with JAX's
+    keywords) at the serving shape: each with the launch counts set to 0
+    before its first call and read after (one launch, on its route), then
+    against its plain version with its record; the flip-free key's worth
+    (the shifted packed scan against the unshifted one, medians of 5 in
+    turns); then the CUDA-core route on 2,048 unprescaled f32 queries and,
+    given ``lo160``/``q160``, at d = 160 (the wide kernel)."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.kernels.distance import exact_fp32
+
+    def one(label, lo, q, kind, kw, shifted, library):
+        args = _epilogue_operands(lo, q, kind, kw["metric"], shifted)
+        kw = dict(kw, bin_size=1024, chunk=16384, transpose=False)
+        cores = st.scan_cores(kind, args[0].shape[1], 1024)
+        st.reset_launches()
+        st.binned_scan(*args, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        counts = route_counts(st, "binned_scan")
+        launches = st.launches["binned_scan"]
+        check(device.type != "cuda"
+              or (launches == 1 and counts[cores] == 1),
+              f"K1 [{label}] did not launch once on the {cores} cores: "
+              f"{counts}")
+        _, rec = _scan_check(st, args, kw, label)
+        rec.update(launches=launches, launches_by_cores=counts,
+                   library_ms=library(args))
+        records[rec["name"]] = rec
+        say(f"K1 [{label}] library {rec['library_ms']} ms")
+        return args, kw
+
+    def matmul(args):
+        return time_ms(lambda: torch.matmul(args[1], args[0].T), 3)
+
+    flip = {}
+    for label, name, kw, shifted in EPILOGUES:
+        args, kw = one(label, base_lo, qlo, getattr(torch, name), kw,
+                       shifted, matmul)
+        if label in ("unprescaled,l2,packed", "shifted,l2,packed"):
+            flip[label] = (args, kw)
+        else:
+            del args
+        torch.cuda.empty_cache()
+    if device.type == "cuda":
+        # the flip-free key against the flipped one, and the unprescaled
+        # scan against the same scan of the corpus stored -2x (the factor
+        # on the query against the factor in the corpus): medians of 5,
+        # two rounds in turns, the smaller of each
+        q, x, add, _ = flip["unprescaled,l2,packed"][0]
+        flip["prescaled,l2,packed"] = (
+            (q, (-2.0 * x.float()).to(x.dtype), add, None),
+            dict(flip["unprescaled,l2,packed"][1], prescaled=True))
+        runs = {label: [] for label in flip}
+        for _ in range(2):
+            for label, (args, kw) in flip.items():
+                runs[label].append(median_ms(
+                    lambda: st.binned_scan(*args, **kw)))
+        best = {label: min(r) for label, r in runs.items()}
+        say(f"flip-free key (T1's shifted packed scan) on this card: "
+            f"{best['shifted,l2,packed']:.4f} ms against "
+            f"{best['unprescaled,l2,packed']:.4f} ms with the sign flip, "
+            f"ratio {best['shifted,l2,packed'] / best['unprescaled,l2,packed']:.4f}; "
+            f"the same scan of the corpus stored -2x "
+            f"{best['prescaled,l2,packed']:.4f} ms (medians of 5, two "
+            f"rounds in turns, the smaller of each; rounds {runs})")
+        records["binned_scan[shifted,l2,packed]"]["flip_free_vs_flip"] = \
+            best["shifted,l2,packed"] / best["unprescaled,l2,packed"]
+    del flip
+    torch.cuda.empty_cache()
+
+    # the CUDA-core route: f32 (no tensor-core kernel) and d = 160
+    def f32_library(args):
+        with exact_fp32():
+            qt = args[0].T
+            return chunked_ms(lambda b: torch.matmul(b, qt), args[1],
+                              YARDSTICK_ROWS)
+
+    one("unprescaled,float32,l2,packed", base_lo, qlo[:EPILOGUE_CUDA_B],
+        torch.float32, dict(metric="l2"), False, f32_library)
+    if lo160 is not None:
+        one("unprescaled,d=160,l2,packed", lo160, q160, torch.bfloat16,
+            dict(metric="l2"), False, matmul)
+    torch.cuda.empty_cache()
 
 
 def gather_check(payload, n_rows: int, device, records,
@@ -1295,7 +1457,7 @@ def build_chunk_check(base_lo, device, records):
     their plain versions on the first node chunk of the build's operands."""
     import torch
 
-    from gbnns_tpu_torch.build.knn_graph import fused_operands
+    from gbnns_tpu_torch.build.knn_graph import FUSED_CHUNK, fused_operands
     from gbnns_tpu_torch.kernels import scan_topk as st
 
     nodes, x, addvec, bin_size = fused_operands(base_lo, GRAPH_K,
@@ -1303,7 +1465,9 @@ def build_chunk_check(base_lo, device, records):
     q = nodes[:BUILD_CHUNK].to(torch.bfloat16)
     del nodes
     got, rec = _scan_check(st, (q, x, addvec, None),
-                           dict(bin_size=bin_size, packed=True),
+                           dict(metric="l2", bin_size=bin_size,
+                                chunk=FUSED_CHUNK, packed=True,
+                                prescaled=True, transpose=False),
                            "bfloat16,packed")
     # yardstick, as for the serving scan: the bare score product
     rec["library_ms"] = time_ms(lambda: torch.matmul(x, q.T), 3)
@@ -1797,12 +1961,20 @@ def sharded_phase(base, query, base_lo, gt, trained, device, records,
         q0 = torch.from_numpy(qlo).to(device)
         args = sh.fused_operands(q0, idx.base_lo[0], metric="l2",
                                  scan_dtype=dtype, f_pad=f_pad)
-        got, rec = _scan_check(st, args, dict(bin_size=f_bin, packed=True),
+        kind = (dict(quant=True) if dtype == "int8"
+                else dict(prescaled=True))
+        got, rec = _scan_check(st, args, dict(metric="l2", bin_size=f_bin,
+                                              chunk=f_chunk, packed=True,
+                                              transpose=False, **kind),
                                f"sharded,{dtype}")
         if dtype == "bfloat16":
             # yardstick: the bare score product of one shard
             rec["library_ms"] = time_ms(
                 lambda: torch.matmul(args[1], args[0].T), 3)
+        else:
+            # int8: one shard's int32 scores fit (8.6 GB)
+            rec["library_ms"] = time_ms(
+                lambda: torch._int_mm(args[1], args[0].T), 3)
         records[k1] = {**rec, "launches": counts["binned_scan"],
                        "launches_by_cores": records[k1]["launches_by_cores"],
                        "shards_on_one_card": SHARDS}
@@ -1853,10 +2025,10 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
     with Phase("build kernels"):
         if device.type == "cuda":
             t0 = time.perf_counter()
-            _build.build(list(KERNEL_SOURCES))
+            secs = _build.build(list(KERNEL_SOURCES))
             say(f"nvcc build: {time.perf_counter() - t0:.2f} s (" + ", ".join(
-                _build.library_path(n).parent.name for n in KERNEL_SOURCES)
-                + ")")
+                f"{_build.library_path(n).parent.name} {secs.get(n)} s"
+                for n in KERNEL_SOURCES) + ")")
     with Phase("data"):
         base, query, base_lo, gt, trained = load_data(device, n, nq, proj_file)
     if device.type == "cuda":

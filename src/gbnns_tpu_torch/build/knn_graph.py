@@ -105,6 +105,11 @@ def _torch_dtype(dtype) -> torch.dtype:
     return found
 
 
+# The fused sweep pads its corpus to a multiple of this chunk (the JAX
+# module's), which the scan checks as the Pallas one does.
+FUSED_CHUNK = 16384
+
+
 def fused_bin_size(n: int, K: int) -> int:
     """The fused sweep's bin: 1024 rows, halved for tiny corpora so that a
     node keeps enough bins (at least 4 (K + 1)), down to 8."""
@@ -127,7 +132,7 @@ def fused_operands(base: np.ndarray, K: int, *, metric: str = "l2",
 
     dev = resolve_device(device)
     n, d = base.shape
-    chunk = 16384
+    chunk = FUSED_CHUNK
     bin_size = fused_bin_size(n, K)
     n_pad = -(-n // chunk) * chunk if n >= chunk else chunk
     # zero columns up to the kernel's width add nothing to a dot product
@@ -165,10 +170,13 @@ def _build_fused(base: np.ndarray, K: int, *, metric: str,
     for off in range(0, n, node_chunk):
         hi = min(off + node_chunk, n)
         raw_v, raw_i = binned_scan(q_all[off:hi].to(torch.bfloat16), x, add_t,
-                                   bin_size=bin_size, packed=True)
-        # bin-major winners straight into the merge: the chunk's real rows
-        # only, as valid_b = hi - off does in the JAX module
-        _, cand = merge_topc(raw_v, raw_i, min(K + 1, raw_v.shape[0]))
+                                   metric=metric, bin_size=bin_size,
+                                   chunk=FUSED_CHUNK, tq=min(512, node_chunk),
+                                   packed=True, prescaled=True,
+                                   transpose=False)
+        # bin-major winners straight into the merge, as in the JAX module
+        _, cand = merge_topc(raw_v, raw_i, min(K + 1, raw_v.shape[0]),
+                             valid_b=hi - off)
         parts.append(cand)
         if verbose:
             print(f"  fused knn-graph {hi}/{n} ({hi / n:.0%}) "

@@ -1,11 +1,15 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch or
-CUTLASS header (only the shared ``csrc/common.cuh``), so one ``nvcc`` call builds it in seconds (a source that
-includes PyTorch's headers takes minutes). The shared library goes to
-``<repo>/.kernel_build/<name>-<hash>/``, keyed by a hash of the source and
-the flags, so a second run reuses it. Nothing is built at import time: the
-first wrapper call on a CUDA tensor builds what it needs.
+Each library ``lib<name>.so`` comes from ``csrc/<name>.cu`` and the sources
+``PARTS`` names beside it; they have a plain C interface and include no
+PyTorch or CUTLASS header (only the shared ``csrc/*.cuh``), so nvcc builds
+them in seconds (a source that includes PyTorch's headers takes minutes).
+A library of one source is one ``nvcc -shared`` call; one of several
+sources compiles each to an object, all at once, then links them, so that
+its halves build in parallel. The shared library goes to
+``<repo>/.kernel_build/<name>-<hash>/``, keyed by a hash of its sources,
+the headers and the flags, so a second run reuses it. Nothing is built at
+import time: the first wrapper call on a CUDA tensor builds what it needs.
 """
 
 from __future__ import annotations
@@ -17,11 +21,15 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / ".kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# A library's sources beside <name>.cu: K1's unprescaled and shifted
+# epilogues compile apart from the rest of libscan_topk.so, in parallel
+PARTS = {"scan_topk": ("scan_epilogue",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -39,45 +47,101 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` is built: keyed by its source, the shared
-    headers (``csrc/*.cuh``) and the flags."""
-    text = (CSRC / f"{name}.cu").read_bytes()
-    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def sources(name: str, csrc: pathlib.Path | None = None) -> list[pathlib.Path]:
+    """The sources of ``lib<name>.so`` in ``csrc`` (``CSRC``): ``<name>.cu``
+    and those of its ``PARTS`` that ``csrc`` holds."""
+    csrc = csrc or CSRC
+    parts = [csrc / f"{p}.cu" for p in PARTS.get(name, ())]
+    return [csrc / f"{name}.cu"] + [p for p in parts if p.exists()]
+
+
+def libraries(csrc: pathlib.Path | None = None) -> list[str]:
+    """Every library ``csrc`` (``CSRC``) builds: its ``.cu`` files but the
+    parts."""
+    parts = {p for ps in PARTS.values() for p in ps}
+    return sorted(f.stem for f in (csrc or CSRC).glob("*.cu")
+                  if f.stem not in parts)
+
+
+def library_path(name: str, csrc: pathlib.Path | None = None,
+                 root: pathlib.Path | None = None) -> pathlib.Path:
+    """Where ``lib<name>.so`` is built (under ``root``, ``BUILD_ROOT``):
+    keyed by its sources, the shared headers (``csrc/*.cuh``) and the
+    flags."""
+    csrc = csrc or CSRC
+    text = b"".join(src.read_bytes() for src in sources(name, csrc))
+    text += b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
+    return (root or BUILD_ROOT) / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, pathlib.Path] | None:
-    out = library_path(name)
+def _popen(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _start_build(name: str, csrc, root):
+    """Start the nvcc processes of ``lib<name>.so``; None if it is built.
+    Returns (processes, objects to link or None, temporary output)."""
+    out = library_path(name, csrc, root)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp
+    srcs = sources(name, csrc)
+    if len(srcs) == 1:
+        return [_popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                        str(srcs[0])])], None, tmp
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_name(f"{src.stem}.{os.getpid()}.o") for src in srcs]
+    return [_popen([_nvcc(), *flags, "-c", "-o", str(obj), str(src)])
+            for src, obj in zip(srcs, objs)], objs, tmp
 
 
-def build(names: list[str]) -> None:
-    """Build every named source that is not built yet, one ``nvcc`` process
-    per source, all started together. Raises with the compiler's output."""
-    started = {name: _start_build(name) for name in names}
-    errors = []
-    for name, job in started.items():
-        if job is None:
-            continue
-        proc, tmp = job
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+def _finish(job) -> str | None:
+    """Wait for a library's processes, link its objects when it has several
+    sources; returns the compiler's output on failure."""
+    procs, objs, tmp = job
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+    if not failed and objs is not None:
+        link = _popen([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])
+        log = link.communicate()[0]
+        if link.returncode != 0:
+            failed.append(log)
+    for obj in objs or ():
+        obj.unlink(missing_ok=True)
+    return "\n".join(failed) if failed else None
+
+
+def build(names: list[str], csrc: pathlib.Path | None = None,
+          root: pathlib.Path | None = None) -> dict[str, float]:
+    """Build every named library that is not built yet, every nvcc process
+    started together; returns each built library's seconds from the start
+    until it was in place. Raises with the compiler's output."""
+    t0 = time.perf_counter()
+    jobs = {name: _start_build(name, csrc, root) for name in names}
+    secs, errors = {}, []
+
+    def finish(name, job):
+        err = _finish(job)
+        if err is None:    # atomic: no half-written .so
+            os.replace(job[2], library_path(name, csrc, root))
         else:
-            os.replace(tmp, library_path(name))  # atomic: no half-written .so
+            job[2].unlink(missing_ok=True)
+            errors.append(f"nvcc failed for lib{name}.so:\n{err}")
+        secs[name] = round(time.perf_counter() - t0, 2)
+
+    waits = [threading.Thread(target=finish, args=(name, job))
+             for name, job in jobs.items() if job is not None]
+    for t in waits:
+        t.start()
+    for t in waits:
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
+    return secs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -210,15 +210,46 @@ constexpr float kMagicF = 12582912.0f;
 
 // What a bin keeps per query: kSelMin the (min, lower row) pair (K1
 // unpacked); kSelFlip the key (flip(bits) & ~mask) | row and its integer
-// min (K1 packed); kSelRaw the key (bits & ~mask) | row with no flip (T3:
-// its scores are >= 0 but for rounding, and among negative residues the
-// raw-bits order is the Pallas kernel's).
+// min (K1 packed); kSelRaw the key (bits & ~mask) | row with no flip (T3,
+// and K1 packed with a per-query shift: the scores are >= 0 but for
+// rounding, and among negative residues the raw-bits order is the Pallas
+// kernels').
 enum TcSelect { kSelMin = 0, kSelFlip = 1, kSelRaw = 2 };
+
+// What a K1 scan adds to its product (T1's epilogues). kEpiPrescaled: the
+// corpus carries the distance scale (stored -2x or -x) or, for int8, the
+// per-query alpha does. kEpiScaled: the query is multiplied by `qscale`
+// (-2 for l2, -1 for ip and angular, 1 for a prescaled corpus) once, as
+// it is loaded: exact for a power of two, and no work per score.
+// kEpiShifted: kEpiScaled, then the query's shift qshift[q] is added to
+// every one of its scores before the selection, and a packed key takes
+// the raw bits (kSelRaw), as T1's shifted mode does.
+enum ScanEpilogue { kEpiPrescaled = 0, kEpiScaled = 1, kEpiShifted = 2 };
+
+// Two bf16 (KIND kBf16) or fp16 (kF16) values of a register word, each
+// times s: exact for s = +-1 and +-2, but where the product leaves the
+// type's range.
+template <int KIND>
+__device__ __forceinline__ uint32_t scale_half2(uint32_t w, float s) {
+  if constexpr (KIND == kF16)
+    return (uint32_t)__half_as_ushort(__float2half_rn(f16_lo(w) * s)) |
+           ((uint32_t)__half_as_ushort(__float2half_rn(f16_hi(w) * s)) << 16);
+  else  // the f32 product of a bf16 value by s has 16 zero low bits
+    return (__float_as_uint(bf16_lo(w) * s) >> 16) |
+           (__float_as_uint(bf16_hi(w) * s) & 0xFFFF0000u);
+}
 
 template <int SEL>
 __device__ __forceinline__ int tc_key(float s, int mask, int row) {
   const int b = __float_as_int(s);
   return ((SEL == kSelFlip ? flip_bits(b) : b) & ~mask) | row;
+}
+
+// The score a key of SEL (kSelFlip or kSelRaw) stands for: its high bits.
+template <int SEL>
+__device__ __forceinline__ float tc_key_value(int key, int mask) {
+  const int v = key & ~mask;
+  return __int_as_float(SEL == kSelFlip ? flip_bits(v) : v);
 }
 
 // One block of a tensor-core scan: bin blockIdx.x / q_tiles and the
@@ -241,15 +272,25 @@ __device__ __forceinline__ int tc_key(float s, int mask, int row) {
 // xor-shuffles merge the 8 groups (kSelMin compares (value, row) as a
 // pair, so ties go to the lower row), and group g writes n-tile g. No
 // score leaves the registers. K1 passes compile-time widths, which fold.
-template <int KIND, int KS, int SEL, bool ADDVEC, int COPY>
+// EPI (K1's epilogue, bf16 and fp16 only past kEpiPrescaled): kEpiScaled
+// multiplies the query fragments by qscale as they are loaded; kEpiShifted
+// also reads the query's shift from `alpha` and adds it to each score
+// after the product. T3 and K1's prescaled kernels take kEpiPrescaled,
+// which adds no code.
+template <int KIND, int KS, int SEL, bool ADDVEC, int COPY,
+          int EPI = kEpiPrescaled>
 __device__ __forceinline__ void tc_scan_bin(
     unsigned char* xs, int stage_bytes, float* adds, const void* q_ptr,
     const void* x_ptr, const float* addvec, const float* alpha,
     float* out_val, int* out_idx, int B, int bin_size, int idx_bits,
-    int q_tiles, int row_bytes, int nk, bool tail, int P) {
+    int q_tiles, int row_bytes, int nk, bool tail, int P,
+    float qscale = 1.f) {
   using S = TcShape<KS>;
   constexpr int NT = S::NT, CH = S::kChunk;
   constexpr bool QUANT = KIND == kInt8;
+  constexpr bool SHIFT = EPI == kEpiShifted;
+  static_assert(!QUANT || EPI == kEpiPrescaled,
+                "int8 scores take their scale from alpha");
   const int bin = blockIdx.x / q_tiles;
   const int qt = blockIdx.x - bin * q_tiles;
   const int tid = threadIdx.x;
@@ -286,10 +327,18 @@ __device__ __forceinline__ void tc_scan_bin(
 #pragma unroll
       for (int h = 0; h < 2; ++h) qb[nt][ks][h] = word(ks * 32 + h * 16 + 4 * t);
     qtl[nt] = word(nk * 32 + 4 * t);  // past the row (0) when no tail
+    if constexpr (EPI != kEpiPrescaled) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          qb[nt][ks][h] = scale_half2<KIND>(qb[nt][ks][h], qscale);
+      qtl[nt] = scale_half2<KIND>(qtl[nt], qscale);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int qi = qbase + nt * 8 + 2 * t + j;
-      al[nt][j] = (QUANT && qi < B) ? alpha[qi] : 0.f;
+      al[nt][j] = ((QUANT || SHIFT) && qi < B) ? alpha[qi] : 0.f;
     }
   }
 
@@ -380,6 +429,11 @@ __device__ __forceinline__ void tc_scan_bin(
             if (ks < nk)
               mma_k16<KIND>(s, a[ks], qb[nt][ks][0], qb[nt][ks][1], s);
           if (tail) mma_k8<KIND>(s, at[0], at[1], qtl[nt], s);
+          if constexpr (SHIFT) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)  // one add a score
+              s[e] = __fadd_rn(s[e], al[nt][e & 1]);
+          }
         }
         if constexpr (SEL == kSelMin) {
 #pragma unroll
@@ -433,8 +487,7 @@ __device__ __forceinline__ void tc_scan_bin(
         out_val[o] = best[nt][j];
         out_idx[o] = (int)(row0 + arg[nt][j]);
       } else {
-        const int v = arg[nt][j] & ~mask;
-        out_val[o] = __int_as_float(SEL == kSelFlip ? flip_bits(v) : v);
+        out_val[o] = tc_key_value<SEL>(arg[nt][j], mask);
         out_idx[o] = (int)(row0 + (arg[nt][j] & mask));
       }
     }

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) kernels of the fused-scan serving path, behind a plain C
 // interface that gbnns_tpu_torch/kernels/scan_topk.py binds with ctypes.
-// The file includes no PyTorch or CUTLASS header, so one nvcc call builds it
-// in seconds:
+// K1's kernels are in scan_k1.cuh; this file instantiates its prescaled and
+// int8 ones and scan_epilogue.cu the unprescaled and shifted ones, two
+// translation units that nvcc compiles at once and links into one library
+// (kernels/_build.py). No PyTorch or CUTLASS header:
 //
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libscan_topk.so scan_topk.cu
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \
+//        -fPIC -c scan_topk.cu       (and scan_epilogue.cu, in parallel)
+//   nvcc -shared -o libscan_topk.so scan_topk.o scan_epilogue.o
 //
 // Every launcher takes the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -13,12 +16,19 @@
 //   _scan_kernel (pallas_call at line 342, reached through binned_scan).
 //   For every corpus bin of `bin_size` rows and every query it writes the
 //   bin's min reduced-dimension score and the row that attains it (ties to
-//   the lower row), bin-major: vals/ids (n_bins, B). Scores are
-//     bf16, fp16, f32: addvec[x] + dot(x, q)  x stored prescaled (-2x or -x)
-//     int8:       addvec[x] + float(dot_i32(x, q)) * alpha[q]
+//   the lower row), bin-major: vals/ids (n_bins, B). Scores are T1's
+//   epilogues (gbnns::ScanEpilogue, a template parameter):
+//     bf16, fp16, f32 prescaled: addvec[x] + dot(x, q), x stored -2x or -x
+//     unprescaled:     addvec[x] + scale * dot(x, q), scale -2 (l2) or -1
+//                      (ip, angular), riding on the query: the kernel
+//                      multiplies q by it once as q is loaded (exact)
+//     shifted:         either of those + qshift[q], added before the
+//                      selection; a packed key then takes the raw bits
+//     int8:            addvec[x] + float(dot_i32(x, q)) * alpha[q]
 //   PACKED reproduces the Pallas packed mode: the score's IEEE bits are
-//   flipped into signed-int order, the low log2(bin_size) bits replaced by
-//   the in-bin row, and one integer min gives value and row together.
+//   flipped into signed-int order (left raw when shifted), the low
+//   log2(bin_size) bits replaced by the in-bin row, and one integer min
+//   gives value and row together.
 //   Bound on an H100 SXM at the serving shapes (n = 1M, B = 16384, d = 32):
 //   2*B*n*d = 1.07 TFLOP, 1.1 ms at the 989 TFLOP/s bf16 tensor-core peak
 //   (0.55 ms at 1,979 TOP/s int8), against ~0.06 ms for the bytes (64 MB of
@@ -103,16 +113,11 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "scan_k1.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-
-constexpr int kScanThreads = 128;
-constexpr int kTileBytes = 16384;  // corpus rows staged per step
-constexpr int kWideRows = 32;      // wide scan: corpus rows per step
-constexpr int kWideCols = 64;      // wide scan: columns per staged slab
 
 // K2: queries (threads) a block, splits (blocks) a cluster at most, rows a
 // load batch, rows a split, shared memory for lists kept there, the empty
@@ -125,450 +130,7 @@ constexpr size_t kMergeSmem = 96 * 1024;
 constexpr long long kMergeEmpty = 0x7FFFFFFFFFFFFFFFLL;
 
 using gbnns::flip_bits;
-using gbnns::half8_to_f32;
-using gbnns::kBf16;
-using gbnns::kF16;
-using gbnns::kF32;
-using gbnns::kInt8;
 using gbnns::kIntMax;
-
-// D in {16, 32, 64, 128}; QPT queries per thread keeps D * QPT = 128
-// registers of query data.
-template <int D, int KIND, bool PACKED>
-__global__ void __launch_bounds__(kScanThreads)
-binned_scan_kernel(const void* __restrict__ q_ptr,
-                   const void* __restrict__ x_ptr,
-                   const float* __restrict__ addvec,
-                   const float* __restrict__ alpha,
-                   float* __restrict__ out_val, int* __restrict__ out_idx,
-                   int B, int bin_size, int idx_bits) {
-  constexpr bool QUANT = KIND == kInt8;
-  constexpr int QPT = 128 / D;
-  constexpr int kElem = QUANT ? 1 : 4;  // staged bytes per element
-  constexpr int kRows = kTileBytes / (D * kElem);
-  constexpr int kQWords = QUANT ? D / 4 : D;
-  __shared__ __align__(16) uint32_t xs[kTileBytes / 4];
-  __shared__ float adds[kRows];
-
-  const int bin = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.y * (kScanThreads * QPT) + tid;
-  const long long row0 = (long long)bin * bin_size;
-  const int mask = (1 << idx_bits) - 1;
-
-  // queries: QUANT holds D/4 packed int8x4 words, else D floats
-  uint32_t qw[QPT][kQWords];
-  float al[QPT];
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const int qi = q0 + j * kScanThreads;
-    al[j] = 0.f;
-    if (qi < B) {
-      if constexpr (QUANT) {
-        const uint4* src =
-            reinterpret_cast<const uint4*>(static_cast<const int8_t*>(q_ptr) +
-                                           (long long)qi * D);
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          uint4 v = src[k];
-          qw[j][4 * k] = v.x; qw[j][4 * k + 1] = v.y;
-          qw[j][4 * k + 2] = v.z; qw[j][4 * k + 3] = v.w;
-        }
-        al[j] = alpha[qi];
-      } else if constexpr (KIND == kF32) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            static_cast<const float*>(q_ptr) + (long long)qi * D);
-#pragma unroll
-        for (int k = 0; k < D / 4; ++k) {
-          uint4 v = src[k];
-          qw[j][4 * k] = v.x; qw[j][4 * k + 1] = v.y;
-          qw[j][4 * k + 2] = v.z; qw[j][4 * k + 3] = v.w;
-        }
-      } else {  // bf16, fp16
-        const uint4* src = reinterpret_cast<const uint4*>(
-            static_cast<const uint16_t*>(q_ptr) + (long long)qi * D);
-#pragma unroll
-        for (int k = 0; k < D / 8; ++k) {
-          float f[8];
-          half8_to_f32<KIND>(src[k], f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) qw[j][8 * k + e] = __float_as_uint(f[e]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kQWords; ++k) qw[j][k] = 0u;
-    }
-  }
-
-  float best[QPT];
-  int arg[QPT];
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    best[j] = __int_as_float(0x7F800000);  // +inf
-    arg[j] = PACKED ? kIntMax : 0;         // PACKED: running key
-  }
-
-  for (int t0 = 0; t0 < bin_size; t0 += kRows) {
-    const int cnt = min(kRows, bin_size - t0);
-    __syncthreads();  // the previous step's rows are consumed
-    if constexpr (QUANT) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          static_cast<const int8_t*>(x_ptr) + (row0 + t0) * D);
-      uint4* dst = reinterpret_cast<uint4*>(xs);
-      for (int i = tid; i < cnt * (D / 16); i += kScanThreads) dst[i] = src[i];
-    } else if constexpr (KIND == kF32) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          static_cast<const float*>(x_ptr) + (row0 + t0) * D);
-      uint4* dst = reinterpret_cast<uint4*>(xs);
-      for (int i = tid; i < cnt * (D / 4); i += kScanThreads) dst[i] = src[i];
-    } else {  // bf16, fp16: widened to f32 as they are staged
-      const uint4* src = reinterpret_cast<const uint4*>(
-          static_cast<const uint16_t*>(x_ptr) + (row0 + t0) * D);
-      float4* dst = reinterpret_cast<float4*>(xs);
-      for (int i = tid; i < cnt * (D / 8); i += kScanThreads) {
-        float f[8];
-        half8_to_f32<KIND>(src[i], f);
-        dst[2 * i] = make_float4(f[0], f[1], f[2], f[3]);
-        dst[2 * i + 1] = make_float4(f[4], f[5], f[6], f[7]);
-      }
-    }
-    for (int i = tid; i < cnt; i += kScanThreads) adds[i] = addvec[row0 + t0 + i];
-    __syncthreads();
-
-    for (int r = 0; r < cnt; ++r) {
-      float s[QPT];
-      if constexpr (QUANT) {
-        const int4* xr = reinterpret_cast<const int4*>(xs) + r * (D / 16);
-        int acc[QPT];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) acc[j] = 0;
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          const int4 xv = xr[k];
-#pragma unroll
-          for (int j = 0; j < QPT; ++j) {
-            acc[j] = __dp4a(xv.x, (int)qw[j][4 * k], acc[j]);
-            acc[j] = __dp4a(xv.y, (int)qw[j][4 * k + 1], acc[j]);
-            acc[j] = __dp4a(xv.z, (int)qw[j][4 * k + 2], acc[j]);
-            acc[j] = __dp4a(xv.w, (int)qw[j][4 * k + 3], acc[j]);
-          }
-        }
-        const float a = adds[r];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j)  // mul then add, each rounded: no FMA
-          s[j] = __fadd_rn(a, __fmul_rn(__int2float_rn(acc[j]), al[j]));
-      } else {
-        const float4* xr = reinterpret_cast<const float4*>(xs) + r * (D / 4);
-        float acc[QPT];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) acc[j] = 0.f;
-#pragma unroll
-        for (int k = 0; k < D / 4; ++k) {
-          const float4 xv = xr[k];
-#pragma unroll
-          for (int j = 0; j < QPT; ++j) {
-            acc[j] = fmaf(xv.x, __uint_as_float(qw[j][4 * k]), acc[j]);
-            acc[j] = fmaf(xv.y, __uint_as_float(qw[j][4 * k + 1]), acc[j]);
-            acc[j] = fmaf(xv.z, __uint_as_float(qw[j][4 * k + 2]), acc[j]);
-            acc[j] = fmaf(xv.w, __uint_as_float(qw[j][4 * k + 3]), acc[j]);
-          }
-        }
-        const float a = adds[r];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) s[j] = __fadd_rn(a, acc[j]);
-      }
-      const int row = t0 + r;
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        if constexpr (PACKED) {
-          const int key = (flip_bits(__float_as_int(s[j])) & ~mask) | row;
-          arg[j] = min(arg[j], key);
-        } else if (s[j] < best[j]) {
-          best[j] = s[j];
-          arg[j] = row;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const int qi = q0 + j * kScanThreads;
-    if (qi >= B) continue;
-    const long long o = (long long)bin * B + qi;
-    if constexpr (PACKED) {
-      out_val[o] = __int_as_float(flip_bits(arg[j] & ~mask));
-      out_idx[o] = (int)(row0 + (arg[j] & mask));
-    } else {
-      out_val[o] = best[j];
-      out_idx[o] = (int)(row0 + arg[j]);
-    }
-  }
-}
-
-// Any d that is a multiple of 16 (used for d > 128): one query per thread.
-// A step stages kWideRows corpus rows kWideCols columns at a time; each
-// thread reads its query 16 columns at a time into registers and keeps the
-// kWideRows running row sums in registers across the slabs, so no score
-// leaves the block. Sums run column by column, as in binned_scan_kernel.
-template <int KIND, bool PACKED>
-__global__ void __launch_bounds__(kScanThreads)
-binned_scan_wide_kernel(const void* __restrict__ q_ptr,
-                        const void* __restrict__ x_ptr,
-                        const float* __restrict__ addvec,
-                        const float* __restrict__ alpha,
-                        float* __restrict__ out_val, int* __restrict__ out_idx,
-                        int B, int d, int bin_size, int idx_bits) {
-  constexpr bool QUANT = KIND == kInt8;
-  using Acc = typename std::conditional<QUANT, int, float>::type;
-  // slab row: kWideCols f32 (bf16, f32) or kWideCols int8 (16 per int4)
-  constexpr int kRowWords = QUANT ? kWideCols / 4 : kWideCols;
-  __shared__ __align__(16) uint32_t xs[kWideRows * kRowWords];
-  __shared__ float adds[kWideRows];
-
-  const int bin = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int qi = blockIdx.y * kScanThreads + tid;
-  const bool live = qi < B;
-  const long long row0 = (long long)bin * bin_size;
-  const int mask = (1 << idx_bits) - 1;
-  const float al = (QUANT && live) ? alpha[qi] : 0.f;
-  float best = __int_as_float(0x7F800000);  // +inf
-  int arg = PACKED ? kIntMax : 0;           // PACKED: running key
-
-  for (int t0 = 0; t0 < bin_size; t0 += kWideRows) {
-    const int cnt = min(kWideRows, bin_size - t0);
-    Acc acc[kWideRows];
-#pragma unroll
-    for (int r = 0; r < kWideRows; ++r) acc[r] = 0;
-    for (int c0 = 0; c0 < d; c0 += kWideCols) {
-      const int groups = min(kWideCols, d - c0) / 16;  // 16-column groups
-      __syncthreads();  // the previous slab is consumed
-      // stage rows [t0, t0 + cnt) x columns [c0, c0 + 16 * groups); rows
-      // past cnt are zero
-      for (int i = tid; i < kWideRows * groups; i += kScanThreads) {
-        const int r = i / groups;
-        const int g = i % groups;
-        const long long e = (row0 + t0 + r) * d + c0 + 16 * g;  // element
-        if constexpr (QUANT) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (r < cnt)
-            v = *reinterpret_cast<const uint4*>(
-                static_cast<const int8_t*>(x_ptr) + e);
-          reinterpret_cast<uint4*>(xs)[r * (kRowWords / 4) + g] = v;
-        } else {
-          float f[16];
-          if (r >= cnt) {
-#pragma unroll
-            for (int k = 0; k < 16; ++k) f[k] = 0.f;
-          } else if constexpr (KIND == kF32) {
-            const float4* src = reinterpret_cast<const float4*>(
-                static_cast<const float*>(x_ptr) + e);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float4 v = src[k];
-              f[4 * k] = v.x; f[4 * k + 1] = v.y;
-              f[4 * k + 2] = v.z; f[4 * k + 3] = v.w;
-            }
-          } else {
-            const uint4* src = reinterpret_cast<const uint4*>(
-                static_cast<const uint16_t*>(x_ptr) + e);
-            half8_to_f32<KIND>(src[0], f);
-            half8_to_f32<KIND>(src[1], f + 8);
-          }
-          float4* dst = reinterpret_cast<float4*>(xs) + r * (kRowWords / 4)
-                        + 4 * g;
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            dst[k] = make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2],
-                                 f[4 * k + 3]);
-        }
-      }
-      if (c0 == 0)
-        for (int i = tid; i < cnt; i += kScanThreads)
-          adds[i] = addvec[row0 + t0 + i];
-      __syncthreads();
-
-      for (int g = 0; g < groups; ++g) {
-        const long long qe = (long long)qi * d + c0 + 16 * g;  // element
-        if constexpr (QUANT) {
-          int4 qv = make_int4(0, 0, 0, 0);
-          if (live)
-            qv = *reinterpret_cast<const int4*>(
-                static_cast<const int8_t*>(q_ptr) + qe);
-#pragma unroll
-          for (int r = 0; r < kWideRows; ++r) {
-            const int4 xv = reinterpret_cast<const int4*>(xs)[
-                r * (kRowWords / 4) + g];
-            acc[r] = __dp4a(xv.x, qv.x, acc[r]);
-            acc[r] = __dp4a(xv.y, qv.y, acc[r]);
-            acc[r] = __dp4a(xv.z, qv.z, acc[r]);
-            acc[r] = __dp4a(xv.w, qv.w, acc[r]);
-          }
-        } else {
-          float qv[16];
-          if (!live) {
-#pragma unroll
-            for (int k = 0; k < 16; ++k) qv[k] = 0.f;
-          } else if constexpr (KIND == kF32) {
-            const float4* src = reinterpret_cast<const float4*>(
-                static_cast<const float*>(q_ptr) + qe);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float4 v = src[k];
-              qv[4 * k] = v.x; qv[4 * k + 1] = v.y;
-              qv[4 * k + 2] = v.z; qv[4 * k + 3] = v.w;
-            }
-          } else {
-            const uint4* src = reinterpret_cast<const uint4*>(
-                static_cast<const uint16_t*>(q_ptr) + qe);
-            half8_to_f32<KIND>(src[0], qv);
-            half8_to_f32<KIND>(src[1], qv + 8);
-          }
-#pragma unroll
-          for (int r = 0; r < kWideRows; ++r) {
-            const float4* xr = reinterpret_cast<const float4*>(xs)
-                               + r * (kRowWords / 4) + 4 * g;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float4 xv = xr[k];
-              acc[r] = fmaf(xv.x, qv[4 * k], acc[r]);
-              acc[r] = fmaf(xv.y, qv[4 * k + 1], acc[r]);
-              acc[r] = fmaf(xv.z, qv[4 * k + 2], acc[r]);
-              acc[r] = fmaf(xv.w, qv[4 * k + 3], acc[r]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kWideRows; ++r) {
-      if (r >= cnt) break;
-      float s;
-      if constexpr (QUANT)  // mul then add, each rounded: no FMA
-        s = __fadd_rn(adds[r], __fmul_rn(__int2float_rn(acc[r]), al));
-      else
-        s = __fadd_rn(adds[r], acc[r]);
-      const int row = t0 + r;
-      if constexpr (PACKED) {
-        arg = min(arg, (flip_bits(__float_as_int(s)) & ~mask) | row);
-      } else if (s < best) {
-        best = s;
-        arg = row;
-      }
-    }
-  }
-
-  if (!live) return;
-  const long long o = (long long)bin * B + qi;
-  if constexpr (PACKED) {
-    out_val[o] = __int_as_float(flip_bits(arg & ~mask));
-    out_idx[o] = (int)(row0 + (arg & mask));
-  } else {
-    out_val[o] = best;
-    out_idx[o] = (int)(row0 + arg);
-  }
-}
-
-// ---- K1 on the tensor cores: bf16, fp16 and int8 at d in {16, 32, 64,
-// 128}, bins a multiple of 16 rows. The loop is gbnns::tc_scan_bin
-// (common.cuh); K1 gives it addvec, its key (the (min, row) pair, or the
-// flipped key when PACKED) and D elements of KIND a row: KS k-slabs of 32
-// bytes, int8 at d = 16 zero-padding its row to 32 bytes.
-template <int D, int KIND>
-struct ScanTc {
-  static constexpr int kRowBytes = D * (KIND == kInt8 ? 1 : 2);
-  static constexpr int KS = (kRowBytes + 31) / 32;
-  using S = gbnns::TcShape<KS>;
-};
-
-template <int D, int KIND, bool PACKED>
-__global__ void __launch_bounds__(gbnns::kTcThreads, 2)
-binned_scan_tc_kernel(const void* __restrict__ q_ptr,
-                      const void* __restrict__ x_ptr,
-                      const float* __restrict__ addvec,
-                      const float* __restrict__ alpha,
-                      float* __restrict__ out_val, int* __restrict__ out_idx,
-                      int B, int bin_size, int idx_bits, int q_tiles) {
-  using T = ScanTc<D, KIND>;
-  constexpr int kStage = T::S::kChunk * T::S::kPitch;
-  __shared__ __align__(16) unsigned char xs[2 * kStage];
-  __shared__ __align__(16) float adds[2 * T::S::kChunk];
-  constexpr int kSel = PACKED ? gbnns::kSelFlip : gbnns::kSelMin;
-  gbnns::tc_scan_bin<KIND, T::KS, kSel, true, 16>(
-      xs, kStage, adds, q_ptr, x_ptr, addvec, alpha, out_val, out_idx, B,
-      bin_size, idx_bits, q_tiles, T::kRowBytes, T::KS, false, T::S::kPitch);
-}
-
-template <int D>
-cudaError_t launch_scan_tc(const void* q, const void* x, const float* addvec,
-                           const float* alpha, float* out_val, int* out_idx,
-                           int B, int n_bins, int bin_size, int idx_bits,
-                           int kind, bool packed, cudaStream_t stream) {
-#define GBNNS_TC(KI, PK)                                                    \
-  do {                                                                      \
-    const int q_tiles =                                                     \
-        gbnns::tc_query_tiles<ScanTc<D, KI>::KS>(B);                        \
-    binned_scan_tc_kernel<D, KI, PK>                                        \
-        <<<(unsigned)((long long)n_bins * q_tiles), gbnns::kTcThreads, 0,   \
-           stream>>>(q, x, addvec, alpha, out_val, out_idx, B, bin_size,    \
-                     idx_bits, q_tiles);                                    \
-  } while (0)
-  switch (kind) {
-    case kBf16:
-      if (packed) GBNNS_TC(kBf16, true); else GBNNS_TC(kBf16, false);
-      break;
-    case kF16:
-      if (packed) GBNNS_TC(kF16, true); else GBNNS_TC(kF16, false);
-      break;
-    case kInt8:
-      if (packed) GBNNS_TC(kInt8, true); else GBNNS_TC(kInt8, false);
-      break;
-    default:
-      return cudaErrorInvalidValue;  // f32 runs on the CUDA cores
-  }
-#undef GBNNS_TC
-  return cudaGetLastError();
-}
-
-// D = 0 selects binned_scan_wide_kernel.
-template <int D>
-cudaError_t launch_scan(const void* q, const void* x, const float* addvec,
-                        const float* alpha, float* out_val, int* out_idx,
-                        int B, int d, int n_bins, int bin_size, int idx_bits,
-                        int kind, bool packed, cudaStream_t stream) {
-  constexpr int per_block = kScanThreads * (D == 0 ? 1 : 128 / (D ? D : 1));
-  const dim3 grid(n_bins, (B + per_block - 1) / per_block);
-  const dim3 block(kScanThreads);
-#define GBNNS_SCAN(KI, PK)                                                  \
-  do {                                                                      \
-    if constexpr (D == 0)                                                   \
-      binned_scan_wide_kernel<KI, PK><<<grid, block, 0, stream>>>(          \
-          q, x, addvec, alpha, out_val, out_idx, B, d, bin_size, idx_bits); \
-    else                                                                    \
-      binned_scan_kernel<D, KI, PK><<<grid, block, 0, stream>>>(            \
-          q, x, addvec, alpha, out_val, out_idx, B, bin_size, idx_bits);    \
-  } while (0)
-  switch (kind) {
-    case kBf16:
-      if (packed) GBNNS_SCAN(kBf16, true); else GBNNS_SCAN(kBf16, false);
-      break;
-    case kInt8:
-      if (packed) GBNNS_SCAN(kInt8, true); else GBNNS_SCAN(kInt8, false);
-      break;
-    case kF32:
-      if (packed) GBNNS_SCAN(kF32, true); else GBNNS_SCAN(kF32, false);
-      break;
-    case kF16:
-      if (packed) GBNNS_SCAN(kF16, true); else GBNNS_SCAN(kF16, false);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef GBNNS_SCAN
-  return cudaGetLastError();
-}
 
 // A list word: the quantized flipped key (its low log2(rb) bits cleared)
 // with the row in its low bits, so that one integer compare gives the
@@ -787,55 +349,46 @@ const char* gbnns_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, d) and x (n_pad, d) of one kind: 0 bf16 (x prescaled), 1 int8,
-// 2 f32 (x prescaled), 3 fp16 (x prescaled); addvec (n_pad,) f32; alpha
-// (B,) f32 for int8, else ignored; out_val f32 / out_idx int32, both
-// (n_pad / bin_size, B).
+// q (B, d) and x (n_pad, d) of one kind: 0 bf16, 1 int8, 2 f32, 3 fp16;
+// addvec (n_pad,) f32; alpha (B,) f32 for int8, else null; out_val f32 /
+// out_idx int32, both (n_pad / bin_size, B). The epilogue: `scale` the
+// factor on the float kinds' dot product (1 for a corpus stored
+// prescaled, -2 or -1 for an unscaled one; 1 for int8, whose alpha
+// scales), `qshift` (B,) f32 the per-query shift of a float kind, or null.
 // d in {16, 32, 64, 128} or any larger multiple of 16; n_pad % bin_size ==
 // 0; PACKED needs a power-of-two bin_size. Pointers 16-byte aligned.
 // tensor_cores = 1 takes binned_scan_tc_kernel (bf16, fp16, int8; d in
 // {16, 32, 64, 128}; bin_size a multiple of 16; anything else is refused),
 // 0 the CUDA-core kernels. The caller chooses (scan_topk.scan_cores).
 int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
-                      const float* alpha, float* out_val, int* out_idx,
-                      int B, int n_pad, int d, int bin_size, int kind,
-                      int packed, int tensor_cores, void* stream) {
+                      const float* alpha, const float* qshift,
+                      float* out_val, int* out_idx, int B, int n_pad, int d,
+                      int bin_size, int kind, int packed, int tensor_cores,
+                      float scale, void* stream) {
   if (B <= 0 || bin_size <= 0 || n_pad <= 0 || n_pad % bin_size != 0 ||
       kind < kBf16 || kind > kF16)
     return cudaErrorInvalidValue;
+  if (scale != 1.f && scale != -1.f && scale != -2.f)
+    return cudaErrorInvalidValue;
+  if (kind == kInt8 ? (alpha == nullptr || qshift != nullptr || scale != 1.f)
+                    : alpha != nullptr)
+    return cudaErrorInvalidValue;
+  const int epi = qshift != nullptr ? kEpiShifted
+                  : scale != 1.f    ? kEpiScaled
+                                    : kEpiPrescaled;
+  const float* qs = kind == kInt8 ? alpha : qshift;  // the kernels' `alpha`
   int idx_bits = 0;
   while ((1 << idx_bits) < bin_size) ++idx_bits;
   if (packed && (1 << idx_bits) != bin_size) return cudaErrorInvalidValue;
   const int n_bins = n_pad / bin_size;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
-    if (kind == kF32 || bin_size % gbnns::kTcRowTile != 0)
-      return cudaErrorInvalidValue;
-#define GBNNS_LAUNCH_TC(DD)                                                 \
-  launch_scan_tc<DD>(q, x, addvec, alpha, out_val, out_idx, B, n_bins,      \
-                     bin_size, idx_bits, kind, packed, s)
-    switch (d) {
-      case 16: return GBNNS_LAUNCH_TC(16);
-      case 32: return GBNNS_LAUNCH_TC(32);
-      case 64: return GBNNS_LAUNCH_TC(64);
-      case 128: return GBNNS_LAUNCH_TC(128);
-      default: return cudaErrorInvalidValue;
-    }
-#undef GBNNS_LAUNCH_TC
-  }
-#define GBNNS_LAUNCH(DD)                                                   \
-  launch_scan<DD>(q, x, addvec, alpha, out_val, out_idx, B, d, n_bins,     \
-                  bin_size, idx_bits, kind, packed, s)
-  switch (d) {
-    case 16: return GBNNS_LAUNCH(16);
-    case 32: return GBNNS_LAUNCH(32);
-    case 64: return GBNNS_LAUNCH(64);
-    case 128: return GBNNS_LAUNCH(128);
-    default:
-      if (d > 128 && d % 16 == 0) return GBNNS_LAUNCH(0);
-      return cudaErrorInvalidValue;
-  }
-#undef GBNNS_LAUNCH
+  if (epi == kEpiPrescaled)
+    return launch_binned_scan<kEpiPrescaled>(
+        q, x, addvec, qs, out_val, out_idx, B, d, n_bins, bin_size, idx_bits,
+        kind, packed, tensor_cores, scale, s);
+  return gbnns::launch_binned_scan_epilogue(
+      epi, q, x, addvec, qs, out_val, out_idx, B, d, n_bins, bin_size,
+      idx_bits, kind, packed, tensor_cores, scale, s);
 }
 
 // The top-ck merge of bin-major winners vals f32 / ids int32 (R, B) ->

@@ -186,6 +186,15 @@ def knn_topk(q, x, k: int, *, metric: str = "l2", qt: int = 256,
     return out_d, out_i
 
 
+def knn_pallas(q, x, k: int, *, metric: str = "l2", qt: int = 256,
+               xt: int = 1024, interpret: bool = False,
+               n_valid: int | None = None):
+    """``knn_topk`` under the JAX package's name and keywords, as its callers
+    import it (``distance_topk_pallas.knn_pallas``); ``interpret`` is
+    accepted and changes nothing."""
+    return knn_topk(q, x, k, metric=metric, qt=qt, xt=xt, n_valid=n_valid)
+
+
 def knn_agreement(got, ref, q, x, *, metric: str = "l2",
                   rtol: float = 1e-5) -> dict:
     """Hold a kNN result ``got = (dists, ids)`` against ``ref`` on the same

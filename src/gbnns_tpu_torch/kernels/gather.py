@@ -1,6 +1,7 @@
 """Row gather: ``payload[idx]`` over whole rows, the graph walker's hop fetch.
 
-Port of ``gbnns_tpu/kernels/gather_pallas.py`` (``dma_row_gather``). Every
+Port of ``gbnns_tpu/kernels/gather_pallas.py`` (``dma_row_gather``, which
+keeps its name and (n, S, 128) layout here beside ``row_gather``). Every
 hop of the payload walker (``search/walker_payload.py``) fetches, for each
 node it expands, one row holding the node's neighbour vectors and ids.
 ``row_gather`` launches kernel K3 (``csrc/gather.cu``) for CUDA tensors and
@@ -89,3 +90,20 @@ def row_gather(payload: torch.Tensor, idx: torch.Tensor, *,
     _build.check(lib, err, "row_gather")
     launches.count("row_gather")
     return out
+
+
+def dma_row_gather(payload: torch.Tensor, idx: torch.Tensor, *,
+                   interpret: bool = False) -> torch.Tensor:
+    """``row_gather`` under the JAX package's name and layout, as its
+    callers import it (``gather_pallas.dma_row_gather``): ``payload[idx]``
+    of an (n, S, 128) f32 payload (S a multiple of 8, the Pallas kernel's
+    tiling) and (R,) int32 ids → (R, S, 128), bit for bit, through K3 on a
+    CUDA tensor. ``interpret`` is accepted and changes nothing."""
+    if payload.ndim != 3 or payload.shape[2] != 128 or payload.shape[1] % 8:
+        raise ValueError(f"payload rows must be (8k, 128)-tiled, got "
+                         f"{tuple(payload.shape[1:])}")
+    if payload.dtype != torch.float32:
+        raise ValueError("payload must be float32-viewed (bitcast packing)")
+    n, rows = payload.shape[0], payload.shape[1] * payload.shape[2]
+    out = row_gather(payload.reshape(n, rows), idx)
+    return out.view(idx.shape[0], *payload.shape[1:])

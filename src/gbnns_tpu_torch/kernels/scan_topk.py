@@ -6,15 +6,24 @@ per query, only the bin's min score and its row, so the (B, n) score matrix
 never reaches device memory. The merge then picks each query's ``c`` best
 bin winners for the exact full-dimension re-rank.
 
-Scores (smaller is closer; the per-query ``‖q‖²`` term cannot change a
-query's ranking, so it is left out):
+``binned_scan`` takes the Pallas ``binned_scan``'s arguments, with its
+meanings and defaults. Scores (smaller is closer; the per-query ``‖q‖²``
+term cannot change a query's ranking, so it is left out unless a shift
+puts it back), ``addvec`` being ``‖x‖²`` (l2) or 0, and +inf on padding
+rows:
 
-* bf16, fp16 and f32: the corpus is stored prescaled as ``-2x`` (l2) or ``-x``
-  (ip, angular), an exact exponent shift, and ``score = addvec[x] + x·q``
-  with ``addvec`` = ``‖x‖²`` (l2) or 0, and +inf on padding rows;
-* int8: per-tensor corpus scale ``sx``, per-query scale ``sq``, exact int32
-  dots and ``score = addvec[x] + dot * alpha[q]``, ``alpha = -2/(sx*sq)``
-  (l2) or ``-1/(sx*sq)``; ``addvec`` is the norm of the dequantized corpus.
+* bf16, fp16 and f32, ``prescaled=True``: the corpus is stored as ``-2x``
+  (l2) or ``-x`` (ip, angular), an exact exponent shift, and ``score =
+  addvec[x] + x·q`` (every engine of the port scans so);
+* ``prescaled=False``: ``addvec[x] - 2 x·q`` (l2) or ``addvec[x] - x·q``
+  (any other metric);
+* ``qshift`` (B,) on a float kind: ``score + qshift[q]`` (``‖q‖²`` for l2,
+  an upper bound for ip), added before the selection, so that scores are
+  >= ~0 and the packed key drops its sign flip;
+* int8 (``quant=True``): per-tensor corpus scale ``sx``, per-query scale
+  ``sq``, exact int32 dots and ``score = addvec[x] + dot * alpha[q]``,
+  ``alpha = qshift = -2/(sx*sq)`` (l2) or ``-1/(sx*sq)``; ``addvec`` is the
+  norm of the dequantized corpus.
 
 The shifted-key scan (``FusedScanIndex(mode="shifted")``, ``shifted_scan``)
 folds the whole distance into one product of augmented operands
@@ -158,7 +167,8 @@ def _library():
     lib = _build.load("scan_topk")
     if not getattr(lib, "_gbnns_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gbnns_binned_scan.argtypes = [p, p, p, p, p, p] + [i] * 7 + [p]
+        lib.gbnns_binned_scan.argtypes = ([p] * 7 + [i] * 7
+                                          + [ctypes.c_float, p])
         lib.gbnns_binned_scan.restype = i
         lib.gbnns_merge_topc.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gbnns_merge_topc.restype = i
@@ -188,44 +198,73 @@ def _gated_library():
     return lib
 
 
-def _check_scan_args(q, x, addvec, alpha, bin_size, packed) -> bool:
-    """Validate the scan's inputs; returns whether it is the int8 scan."""
-    quant = x.dtype == torch.int8
+def _check_scan_args(q, x, addvec, qshift, *, bin_size: int, chunk: int,
+                     packed: bool, quant: bool) -> None:
+    """The Pallas ``binned_scan``'s checks, with its messages where it has
+    them; one more: an int8 corpus without ``quant`` is refused (JAX's cast
+    of q to it would truncate, and its scores would miss their scale)."""
     if x.dtype not in _KINDS:
         raise TypeError(f"scan corpus must be bfloat16, float16, int8 or "
                         f"float32, got {x.dtype}")
-    if q.dtype != x.dtype:
-        raise TypeError(f"queries {q.dtype} do not match corpus {x.dtype}")
-    others = [q, addvec] + ([] if alpha is None else [alpha])
+    if quant and qshift is None:
+        raise ValueError("quant=True needs qshift = per-query alpha")
+    if quant and (q.dtype != torch.int8 or x.dtype != torch.int8):
+        raise ValueError(f"quant=True needs int8 q and x, got {q.dtype} "
+                         f"/ {x.dtype} (an astype here would truncate)")
+    if not quant and x.dtype == torch.int8:
+        raise ValueError("an int8 corpus scans with quant=True and qshift = "
+                         "the per-query alpha")
+    others = [q, addvec] + ([] if qshift is None else [qshift])
     if any(t.device != x.device for t in others):
         raise ValueError("scan inputs must all lie on one device")
     if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"x {tuple(x.shape)}")
-    if x.shape[0] % bin_size or tuple(addvec.shape) != (x.shape[0],):
-        raise ValueError(f"corpus rows {x.shape[0]} must be a multiple of "
-                         f"bin_size {bin_size}, with one addvec entry each")
+    if qshift is not None and tuple(qshift.shape) != (q.shape[0],):
+        raise ValueError(f"qshift has shape {tuple(qshift.shape)}, not "
+                         f"({q.shape[0]},)")
+    n_pad = x.shape[0]
+    if bin_size < 1 or chunk < 1 or n_pad % chunk or chunk % bin_size \
+            or tuple(addvec.shape) != (n_pad,):
+        raise ValueError(f"need n_pad % chunk == chunk % bin_size == 0 with "
+                         f"one addvec entry a row: n_pad {n_pad}, chunk "
+                         f"{chunk}, bin_size {bin_size}, addvec "
+                         f"{tuple(addvec.shape)}")
     if packed and bin_size & (bin_size - 1):
-        raise ValueError("packed selection needs a power-of-two bin_size")
-    if quant != (alpha is not None):
-        raise ValueError("alpha (per-query dequantization) goes with, and "
-                         "only with, an int8 scan")
-    return quant
+        raise ValueError("packed selection needs power-of-two bin_size")
 
 
-def binned_scan_plain(q, x, addvec, alpha=None, *, bin_size: int = 1024,
-                      packed: bool = False):
+def dot_scale(metric: str, prescaled: bool, quant: bool) -> float:
+    """The factor on a scan's dot product: 1 for a prescaled corpus and for
+    int8 (whose alpha carries it), else -2 for l2 and -1 for every other
+    metric, as the Pallas kernel reads ``l2=metric == "l2"``."""
+    if prescaled or quant:
+        return 1.0
+    return -2.0 if metric == "l2" else -1.0
+
+
+def binned_scan_plain(q, x, addvec, qshift=None, *, metric: str = "l2",
+                      bin_size: int = 1024, chunk: int = 16384,
+                      tq: int = 512, interpret: bool = False,
+                      packed: bool = True, prescaled: bool = False,
+                      transpose: bool = True, quant: bool = False):
     """Plain PyTorch version of ``binned_scan`` (same contract).
 
     The dots run as fp32 products with TF32 off: exact products of bf16
     and fp16 inputs, fp32 products of fp32 inputs, and exact integer sums
-    for int8 (|dot| <= d * 127² < 2^24 for d < 1040)."""
-    quant = _check_scan_args(q, x, addvec, alpha, bin_size, packed)
+    for int8 (|dot| <= d * 127² < 2^24 for d < 1040). Then the scale (an
+    exact power of two), the shift, the selection and the key, in the
+    Pallas kernel's order."""
+    _check_scan_args(q, x, addvec, qshift, bin_size=bin_size, chunk=chunk,
+                     packed=packed, quant=quant)
     B = q.shape[0]
     n_bins = x.shape[0] // bin_size
+    shifted = qshift is not None and not quant
+    scale = dot_scale(metric, prescaled, quant)
     vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
     ids = torch.empty((n_bins, B), dtype=torch.int32, device=x.device)
-    qf = q.float()
+    qf = q.to(x.dtype).float()
+    qs = None if qshift is None else qshift.float()[None, :]
     mask = bin_size - 1
     # bound the f32 score block to 2^26 entries (256 MB)
     step = max(1, (1 << 26) // (B * bin_size))
@@ -236,50 +275,76 @@ def binned_scan_plain(q, x, addvec, alpha=None, *, bin_size: int = 1024,
         with exact_fp32():
             dots = x[r0:r1].float() @ qf.T                    # (rows, B)
         add = addvec[r0:r1, None].float()
-        s = add + dots * alpha[None, :] if quant else add + dots
+        if quant:
+            s = add + dots * qs
+        else:
+            s = add + dots if scale == 1.0 else add + scale * dots
+            if shifted:
+                s = s + qs
         s = s.view(b1 - b0, bin_size, B)
         if packed:
-            key = (_flip(s.view(torch.int32)) & ~mask) | iota[None, :, None]
+            bits = s.view(torch.int32)
+            key = ((bits if shifted else _flip(bits)) & ~mask) \
+                | iota[None, :, None]
             kmin = key.amin(dim=1)
-            vals[b0:b1] = _flip(kmin & ~mask).view(torch.float32)
+            vbits = kmin & ~mask
+            vals[b0:b1] = (vbits if shifted else _flip(vbits)).view(
+                torch.float32)
             pos = kmin & mask
         else:
             v, pos = s.min(dim=1)                  # first min: lower row
             vals[b0:b1] = v
         base = torch.arange(b0, b1, device=x.device, dtype=torch.int64)
         ids[b0:b1] = (pos + base[:, None] * bin_size).to(torch.int32)
-    return vals, ids
+    return (vals.T, ids.T) if transpose else (vals, ids)
 
 
-def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
-                packed: bool = False, cores: str | None = None):
-    """Bin winners of the full scan, bin-major: ``(vals (n_bins, B) f32,
-    ids (n_bins, B) int32)``, ids being corpus rows.
+def binned_scan(q, x, addvec, qshift=None, *, metric: str = "l2",
+                bin_size: int = 1024, chunk: int = 16384, tq: int = 512,
+                interpret: bool = False, packed: bool = True,
+                prescaled: bool = False, transpose: bool = True,
+                quant: bool = False, cores: str | None = None):
+    """Bin winners of the full scan: ``(vals (B, n_bins) f32, ids (B,
+    n_bins) int32)``, ids being corpus rows; bin-major ``(n_bins, B)`` with
+    ``transpose=False`` (unpadded: a Pallas caller's ``[:, :B]`` leaves it
+    as it is). The Pallas ``binned_scan``'s contract:
 
-    q (B, d) and x (n_pad, d) are both bfloat16, float16 or float32 (x
-    prescaled), or both int8; addvec (n_pad,) f32; alpha (B,) f32 for int8
-    only. d is one of ``SCAN_WIDTHS`` or a larger multiple of 16.
-    ``packed`` selects on an int key with the score quantized to 2^-13
-    relative (ties to the lower row). CPU tensors take
+    q (B, d), cast to x's type; x (n_pad, d) bfloat16, float16 or float32,
+    stored ``-2x``/``-x`` when ``prescaled`` (the scores are in the module
+    docstring); n_pad a multiple of ``chunk`` and ``chunk`` of
+    ``bin_size``; addvec (n_pad,) f32. ``qshift`` (B,) is the per-query
+    shift of a float scan, or the per-query alpha of an int8 one
+    (``quant=True``: q and x int8; required there). ``packed`` selects on
+    an int key, the score quantized to 2^(log2 bin_size - 23) relative
+    (ties to the lower row). ``chunk`` sets nothing but the check; ``tq``
+    and ``interpret`` are accepted and change nothing.
+
+    d is one of ``SCAN_WIDTHS`` or a larger multiple of 16. CPU tensors take
     ``binned_scan_plain``; CUDA tensors launch K1 on the cores
     ``scan_cores`` names, or on ``cores`` ("cuda" takes every shape,
     "tensor" only those ``scan_cores`` gives it) to compare the routes.
+    In fp16 an unprescaled query must stay below 32,768 in magnitude on
+    the card: the kernel carries the l2 factor -2 on it.
     """
     route = _route(cores, scan_cores(x.dtype, q.shape[1], bin_size),
                    "binned_scan")
     if x.device.type == "cpu":
-        return binned_scan_plain(q, x, addvec, alpha, bin_size=bin_size,
-                                 packed=packed)
-    quant = _check_scan_args(q, x, addvec, alpha, bin_size, packed)
+        return binned_scan_plain(
+            q, x, addvec, qshift, metric=metric, bin_size=bin_size,
+            chunk=chunk, packed=packed, prescaled=prescaled,
+            transpose=transpose, quant=quant)
+    _check_scan_args(q, x, addvec, qshift, bin_size=bin_size, chunk=chunk,
+                     packed=packed, quant=quant)
     if x.device.type != "cuda":
         raise ValueError(f"binned_scan runs on cuda or cpu, not {x.device}")
     B, d = q.shape
     if not _kernel_width(d):
         raise ValueError(f"the scan kernel takes d in {SCAN_WIDTHS} or a "
                          f"larger multiple of 16, got {d}")
-    q, x = _build.aligned(q), _build.aligned(x)
+    q, x = _build.aligned(q.to(x.dtype)), _build.aligned(x)
     addvec = _build.aligned(addvec.float())
-    alpha = _build.aligned(alpha.float()) if quant else None
+    qs = None if qshift is None else _build.aligned(qshift.float())
+    alpha, shift = (qs, None) if quant else (None, qs)
     n_bins = x.shape[0] // bin_size
     vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
     ids = torch.empty((n_bins, B), dtype=torch.int32, device=x.device)
@@ -288,13 +353,15 @@ def binned_scan(q, x, addvec, alpha=None, *, bin_size: int = 1024,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gbnns_binned_scan(
             q.data_ptr(), x.data_ptr(), addvec.data_ptr(),
-            alpha.data_ptr() if quant else None, vals.data_ptr(),
+            None if alpha is None else alpha.data_ptr(),
+            None if shift is None else shift.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), B, x.shape[0], d, bin_size, _KINDS[x.dtype],
-            int(packed), int(route == "tensor"), stream)
+            int(packed), int(route == "tensor"),
+            dot_scale(metric, prescaled, quant), stream)
     _build.check(lib, err, "binned_scan")
     launches.count("binned_scan")
     launches_by_cores.count(f"binned_scan:{route}")
-    return vals, ids
+    return (vals.T, ids.T) if transpose else (vals, ids)
 
 
 def _bf16_round(v) -> np.ndarray:
@@ -697,8 +764,20 @@ def _merge_stage_plain(vals, ids, ck: int, rb: int):
     return out_v.view(nb * ck, B), out_i.view(nb * ck, B)
 
 
-def merge_topc_plain(vals, ids, c: int, *, rb: int = 512):
+def _valid_columns(vals, ids, valid_b: int | None):
+    """The first ``valid_b`` query columns (all for None), as the Pallas
+    merge keeps them."""
+    if valid_b is None or valid_b == vals.shape[1]:
+        return vals, ids
+    if not 0 <= valid_b <= vals.shape[1]:
+        raise ValueError(f"valid_b {valid_b} is not in [0, {vals.shape[1]}]")
+    return vals[:, :valid_b], ids[:, :valid_b]
+
+
+def merge_topc_plain(vals, ids, c: int, *, valid_b: int | None = None,
+                     rb: int = 512):
     """Plain PyTorch version of ``merge_topc`` (same contract and stages)."""
+    vals, ids = _valid_columns(vals, ids, valid_b)
     ck, rb, fallback = _merge_plan(c, rb, vals.shape[0])
     if fallback:
         return exact_topc(vals, ids, c)
@@ -708,10 +787,13 @@ def merge_topc_plain(vals, ids, c: int, *, rb: int = 512):
             return vals[:c].T, ids[:c].T
 
 
-def merge_topc(vals, ids, c: int, *, rb: int = 512):
-    """Top-c merge of bin-major winners ``vals/ids (R, B)`` (from
-    ``binned_scan``) → ``(vals (B, c) f32, ids (B, c) int32)``, ascending by
-    the quantized key.
+def merge_topc(vals, ids, c: int, *, valid_b: int | None = None,
+               rb: int = 512, tq: int = 512, interpret: bool = False):
+    """Top-c merge of bin-major winners ``vals/ids (R, Bp)`` (from
+    ``binned_scan(..., transpose=False)``) → ``(vals (B, c) f32, ids (B, c)
+    int32)``, ascending by the quantized key, for the first ``valid_b``
+    query columns (None: all of them). The Pallas ``merge_topc``'s
+    contract; ``tq`` and ``interpret`` are accepted and change nothing.
 
     The result of the Pallas version's hierarchical merge: each stage
     reduces blocks of ``rb`` rows to their top ck = round_up(c, 8) by
@@ -724,7 +806,8 @@ def merge_topc(vals, ids, c: int, *, rb: int = 512):
     once.
     """
     if vals.device.type == "cpu":
-        return merge_topc_plain(vals, ids, c, rb=rb)
+        return merge_topc_plain(vals, ids, c, valid_b=valid_b, rb=rb)
+    vals, ids = _valid_columns(vals, ids, valid_b)
     if vals.device.type != "cuda":
         raise ValueError(f"merge_topc runs on cuda or cpu, not {vals.device}")
     if vals.dtype != torch.float32 or ids.dtype != torch.int32 \
@@ -866,6 +949,14 @@ class FusedScanIndex:
         return torch.nn.functional.pad(
             q_aug, (0, self.x_aug.shape[1] - q_aug.shape[1]))
 
+    def scan_kw(self) -> dict:
+        """``binned_scan``'s keywords for this index (the Pallas index's):
+        its metric and geometry, and a prescaled or an int8 corpus (whose
+        ``qshift`` is the per-query alpha of ``scan_queries``)."""
+        kind = dict(quant=True) if self.quant else dict(prescaled=True)
+        return dict(metric=self.metric, bin_size=self.bin_size,
+                    chunk=self.chunk, tq=self.tq, packed=self.packed, **kind)
+
     def scan_queries(self, ql: torch.Tensor):
         """Queries in the scan's type and width, and the int8 dequant
         factor per query (None for the float kinds)."""
@@ -906,10 +997,10 @@ class FusedScanIndex:
             return exact_topc(vals.T, ids.T, c)[1]
         q_scan, alpha = self.scan_queries(ql)
         vals, ids = binned_scan(q_scan, self.x_lo, self.addvec, alpha,
-                                bin_size=self.bin_size, packed=self.packed)
+                                **self.scan_kw(), transpose=False)
         cc = min(c, vals.shape[0])
         if merge == "pallas":
-            return merge_topc(vals, ids, cc)[1]
+            return merge_topc(vals, ids, cc, valid_b=ql.shape[0])[1]
         return exact_topc(vals, ids, cc)[1]
 
     def search(self, queries_full, queries_lo=None, *, k: int = 10,
@@ -925,10 +1016,15 @@ class FusedScanIndex:
                           base_sqnorms=self.base_sq)
 
 
-def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,
-                   packed: bool, rtol: float = 1e-5) -> dict:
+def scan_agreement(got, ref, q, x, addvec, qshift=None, *,
+                   metric: str = "l2", bin_size: int = 1024,
+                   chunk: int = 16384, tq: int = 512, interpret: bool = False,
+                   packed: bool = True, prescaled: bool = False,
+                   transpose: bool = True, quant: bool = False,
+                   rtol: float = 1e-5) -> dict:
     """Hold a scan's bin winners ``got = (vals, ids)`` against the plain
-    version's ``ref`` on the same inputs.
+    version's ``ref`` on the same inputs and ``binned_scan`` keywords (of
+    which ``chunk``, ``tq`` and ``interpret`` change no score).
 
     Values must agree within ``rtol`` (relative to the largest |ref| value,
     since a score near 0 is the difference of larger terms); in packed mode
@@ -936,6 +1032,8 @@ def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,
     near-tie: the plain score at the kernel's row lies within the same
     tolerance of the bin's min. Returns the counts and the largest error;
     ``ok`` says whether every bin passed."""
+    if transpose:
+        got, ref = (got[0].T, got[1].T), (ref[0].T, ref[1].T)
     gv, gi = got[0].float(), got[1].long()
     rv, ri = ref[0].float(), ref[1].long()
     scale = rv[torch.isfinite(rv)].abs().max().item() if rv.numel() else 1.0
@@ -951,9 +1049,14 @@ def scan_agreement(got, ref, q, x, addvec, alpha=None, *, bin_size: int,
     if miss.numel():
         b, j = miss[:, 0], miss[:, 1]
         rows = gi[b, j]
-        dots = (x[rows].float() * q[j].float()).sum(-1)
-        s = addvec[rows].float() + (dots * alpha[j].float()
-                                    if alpha is not None else dots)
+        dots = (x[rows].float() * q[j].to(x.dtype).float()).sum(-1)
+        add = addvec[rows].float()
+        if quant:
+            s = add + dots * qshift[j].float()
+        else:
+            s = add + dot_scale(metric, prescaled, quant) * dots
+            if qshift is not None:
+                s = s + qshift[j].float()
         near_ties = int(((s - rv[b, j]).abs() <= tol).sum())
     id_bad = int(miss.shape[0]) - near_ties
     return {"max_abs_err": max_err, "bad_values": bad_vals,
@@ -967,9 +1070,9 @@ def shifted_agreement(got, ref, q_aug, x_aug, *, bin_size: int,
     score is the whole dot product of the augmented operands (no addvec),
     keyed as a packed score of ``bin_size``."""
     zero = torch.zeros(x_aug.shape[0], device=x_aug.device)
-    return scan_agreement((got[0].T, got[1].T), (ref[0].T, ref[1].T),
-                          q_aug.to(x_aug.dtype), x_aug, zero,
-                          bin_size=bin_size, packed=True, rtol=rtol)
+    return scan_agreement(got, ref, q_aug.to(x_aug.dtype), x_aug, zero,
+                          bin_size=bin_size, chunk=x_aug.shape[0],
+                          packed=True, prescaled=True, rtol=rtol)
 
 
 def gated_agreement(got, ref, q, x, addvec, *, fine: int, sub: int,

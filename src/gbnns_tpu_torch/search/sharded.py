@@ -369,14 +369,19 @@ def _shard_candidates(index: ShardedIndex, p: int, q: torch.Tensor, *,
     if engine == "fused":
         from gbnns_tpu_torch.kernels.scan_topk import binned_scan, merge_topc
 
-        _, f_bin, f_pad = fused_geometry(index.n_shard, ef)
+        f_chunk, f_bin, f_pad = fused_geometry(index.n_shard, ef)
         q_scan, x, add, alpha = fused_operands(
             q, base_lo, metric=metric, scan_dtype=scan_dtype, f_pad=f_pad,
             n_real=min(index.n_shard, index.n - p * index.n_shard))
-        vals, ids = binned_scan(q_scan, x, add, alpha, bin_size=f_bin,
-                                packed=True)
+        kind = (dict(quant=True) if scan_dtype == "int8"
+                else dict(prescaled=True))
+        vals, ids = binned_scan(q_scan, x, add, alpha, metric=metric,
+                                bin_size=f_bin, chunk=f_chunk,
+                                tq=min(512, q.shape[0]), packed=True,
+                                transpose=False, **kind)
         # K2 on the scan's bin-major winners, as the single-card engine
-        return merge_topc(vals, ids, min(ef, vals.shape[0]))[1]
+        return merge_topc(vals, ids, min(ef, vals.shape[0]),
+                          valid_b=q.shape[0])[1]
     if engine == "flat":
         from gbnns_tpu_torch.kernels.topk import knn_chunked
 

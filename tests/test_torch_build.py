@@ -91,8 +91,10 @@ def test_no_kernel_source_includes_torch_headers():
 
 
 def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
-    """The port's three sources: all three nvcc processes start before the
-    first is waited on, each compiles one source with the Hopper flags."""
+    """Three of the port's libraries, four sources (libscan_topk.so is
+    scan_topk.cu and scan_epilogue.cu): all four nvcc processes start before
+    the first is waited on, each compiles one source with the Hopper flags,
+    and the two objects of libscan_topk.so are linked once both are built."""
     events = []
 
     class FakeProc:
@@ -114,17 +116,30 @@ def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
     names = ["scan_topk", "gated_topm", "gather"]
     _build.build(names)
     kinds = [e[0] for e in events]
-    assert kinds == ["start"] * 3 + ["wait"] * 3
-    for name, (_, cmd) in zip(names, events):
-        assert cmd[-1] == str(_build.CSRC / f"{name}.cu")
+    assert kinds[:4] == ["start"] * 4
+    compiles = [cmd for kind, cmd in events[:4]]
+    want = [_build.CSRC / "scan_topk.cu", _build.CSRC / "scan_epilogue.cu",
+            _build.CSRC / "gated_topm.cu", _build.CSRC / "gather.cu"]
+    assert [cmd[-1] for cmd in compiles] == [str(w) for w in want]
+    for cmd in compiles:
         assert [c for c in cmd if c.endswith(".cu")] == [cmd[-1]]
         assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-c" in compiles[0] and "-c" in compiles[1]
+    links = [cmd for kind, cmd in events[4:] if kind == "start"]
+    assert len(links) == 1 and "-shared" in links[0]
+    assert [c for c in links[0] if c.endswith(".o")] == [
+        compiles[0][compiles[0].index("-o") + 1],
+        compiles[1][compiles[1].index("-o") + 1]]
+    assert kinds.count("wait") == 5
+    for name in names:
         assert _build.library_path(name).exists()
+        assert not list(_build.library_path(name).parent.glob("*.o"))
 
 
 def test_sources_include_only_cuda_headers_and_common():
     allowed = {"<cuda_runtime.h>", "<cuda_fp16.h>", "<cooperative_groups.h>",
-               "<stdint.h>", "<type_traits>", '"common.cuh"'}
+               "<stdint.h>", "<type_traits>", '"common.cuh"',
+               '"scan_k1.cuh"'}
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(
         _build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {"scan_topk.cu", "gated_topm.cu",
@@ -141,3 +156,40 @@ def test_build_path_follows_the_shared_header(fake_csrc):
     first = _build.library_path("k")
     (fake_csrc / "common.cuh").write_text("// v2\n")
     assert _build.library_path("k") != first
+
+
+def test_sass_compare_matches_old_and_new_kernel_names():
+    """The SASS comparison's names: cu++filt's forms, the parameter list
+    dropped, K1's prescaled epilogue argument matched to the old name."""
+    from gbnns_tpu_torch.kernels import sass_compare as sc
+
+    new = ("void <unnamed>::binned_scan_tc_kernel<(int)32, (int)0, (bool)1, "
+           "(int)0>(void const*, void const*, float const*, int, float)")
+    old = ("void <unnamed>::binned_scan_tc_kernel<(int)32, (int)0, "
+           "(bool)1>(void const*, void const*, float const*, int)")
+    assert sc.kernel_key(new) == sc.kernel_key(old) \
+        == "binned_scan_tc_kernel<(int)32, (int)0, (bool)1>"
+    assert sc.kernel_key(new.replace("(int)0>", "(int)2>")).endswith(
+        "(int)2>")
+    assert sc.kernel_key("(anonymous namespace)::merge_topc_kernel<16, "
+                         "false>(float const*, int)") == \
+        "merge_topc_kernel<16, false>"
+    sass = ("\tcode for sm_90a\n\t\tFunction : _Za\n\t.headerflags @\"x\"\n"
+            "        /*0000*/  LDC R1, c[0x0][0x28] ;\n        ......\n\n"
+            "Fatbin elf code:\n\t\tFunction : _Zb\n        /*0000*/  EXIT ;\n")
+    assert sc.split_functions(sass) == {
+        "_Za": "/*0000*/  LDC R1, c[0x0][0x28] ;", "_Zb": "/*0000*/  EXIT ;"}
+    assert sc.split_functions(" Function _Za:\nREG:40 STACK:8 LOCAL:0\n") \
+        == {"_Za": "REG:40 STACK:8 LOCAL:0"}
+
+
+def test_libraries_and_their_sources(tmp_path):
+    """A library's parts compile beside it; a tree without them builds the
+    library from its one source."""
+    assert "scan_epilogue" not in _build.libraries()
+    assert [p.name for p in _build.sources("scan_topk")] == [
+        "scan_topk.cu", "scan_epilogue.cu"]
+    (tmp_path / "scan_topk.cu").write_text("// old tree\n")
+    assert _build.libraries(tmp_path) == ["scan_topk"]
+    assert [p.name for p in _build.sources("scan_topk", tmp_path)] == [
+        "scan_topk.cu"]

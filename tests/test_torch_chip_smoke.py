@@ -181,6 +181,44 @@ def test_build_chunk_check_runs_its_kernels(chip_smoke, monkeypatch, capsys):
                / chip_smoke.PEAK_BYTES_S * 1e3) < 1e-12
 
 
+def test_epilogue_checks_run_their_kernels(chip_smoke, monkeypatch, capsys):
+    """The card-only checks of T1's epilogues (binned_scan with JAX's
+    keywords on an unscaled corpus) on the CPU, with the timer replaced by
+    a call that only runs each function and no device to synchronize:
+    every record of the kernels' line, with every key, against plain."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    rng = np.random.default_rng(7)
+    lo = rng.normal(size=(3000, 32)).astype(np.float32)
+    qlo = torch.from_numpy(rng.normal(size=(64, 32)).astype(np.float32))
+    lo160 = rng.normal(size=(3000, 160)).astype(np.float32)
+    q160 = torch.from_numpy(rng.normal(size=(16, 160)).astype(np.float32))
+    records = {}
+    chip_smoke.epilogue_checks(lo, qlo, torch.device("cpu"), records,
+                               lo160=lo160, q160=q160)
+    out = capsys.readouterr().out
+    labels = [e[0] for e in chip_smoke.EPILOGUES] + [
+        "unprescaled,float32,l2,packed", "unprescaled,d=160,l2,packed"]
+    assert set(records) == {f"binned_scan[{lb}]" for lb in labels}
+    for label in labels:
+        rec = records[f"binned_scan[{label}]"]
+        assert f"K1 binned_scan[{label}] vs plain" in out
+        assert {"route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "earlier_ms"} <= set(rec)
+        assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+        assert rec["library_ms"] == 1.0 and rec["launches"] == 0  # CPU
+    cores = {lb: records[f"binned_scan[{lb}]"]["cores"] for lb in labels}
+    assert cores.pop("unprescaled,float32,l2,packed") == "cuda"
+    assert cores.pop("unprescaled,d=160,l2,packed") == "cuda"
+    assert set(cores.values()) == {"tensor"}
+
+
 @pytest.mark.parametrize("name", ["row_gather", "row_gather[f32]",
                                   "row_gather[sharded]"])
 def test_gather_check_records_under_its_name(chip_smoke, monkeypatch, capsys,

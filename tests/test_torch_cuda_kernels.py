@@ -47,6 +47,14 @@ def _scan_inputs(n, d, B, quant, seed=0):
             torch.from_numpy(add), None)
 
 
+def _scan_kw(x, alpha, bin_size, packed):
+    """``binned_scan``'s keywords for these operands: a prescaled corpus (an
+    int8 one with its alpha), bin-major winners, one chunk."""
+    kind = dict(quant=True) if alpha is not None else dict(prescaled=True)
+    return dict(bin_size=bin_size, chunk=x.shape[0], packed=packed,
+                transpose=False, **kind)
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("packed", [False, True])
@@ -60,14 +68,13 @@ def test_binned_scan_kernel_matches_plain(dev, d, quant, packed, bin_size):
     cores = st.scan_cores(x.dtype, d, bin_size)
     assert cores == ("cuda" if bin_size == 8 else "tensor")
     on_route = st.launches_by_cores[f"binned_scan:{cores}"]
-    got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed)
+    kw = _scan_kw(x, alpha, bin_size, packed)
+    got = st.binned_scan(q, x, add, alpha, **kw)
     torch.cuda.synchronize()
     assert st.launches["binned_scan"] == before + 1
     assert st.launches_by_cores[f"binned_scan:{cores}"] == on_route + 1
-    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
-                               packed=packed)
-    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
-                            packed=packed, rtol=1e-5)
+    ref = st.binned_scan_plain(q, x, add, alpha, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, rtol=1e-5, **kw)
     assert rep["ok"], rep
     if quant:  # exact integer dots and the same two roundings: bit-equal
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -87,10 +94,10 @@ def test_fp32_and_wide_scans_match_plain(dev, kind, d, packed):
     if kind == "float32":
         q, x = q.float(), x.float()
     add[-5:] = float("inf")
-    got = st.binned_scan(q, x, add, alpha, bin_size=1024, packed=packed)
-    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=1024, packed=packed)
-    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=1024,
-                            packed=packed, rtol=1e-5)
+    kw = _scan_kw(x, alpha, 1024, packed)
+    got = st.binned_scan(q, x, add, alpha, **kw)
+    ref = st.binned_scan_plain(q, x, add, alpha, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, rtol=1e-5, **kw)
     assert rep["ok"], rep
     if kind == "int8":
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -106,21 +113,22 @@ def test_fp16_scan_matches_plain(dev, d, packed):
     q, x = q.to(torch.float16), x.to(torch.float16)
     add[-5:] = float("inf")
     before = st.launches["binned_scan"]
-    got = st.binned_scan(q, x, add, bin_size=1024, packed=packed)
+    kw = _scan_kw(x, None, 1024, packed)
+    got = st.binned_scan(q, x, add, **kw)
     torch.cuda.synchronize()
     assert st.launches["binned_scan"] == before + 1
-    ref = st.binned_scan_plain(q, x, add, bin_size=1024, packed=packed)
-    rep = st.scan_agreement(got, ref, q, x, add, bin_size=1024,
-                            packed=packed, rtol=1e-5)
+    ref = st.binned_scan_plain(q, x, add, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, rtol=1e-5, **kw)
     assert rep["ok"], rep
 
 
 def test_binned_scan_kernel_odd_bin(dev):
     q, x, add, _ = (t.to(dev) if t is not None else None
                     for t in _scan_inputs(96 * 40, 32, 130, False, seed=3))
-    got = st.binned_scan(q, x, add, bin_size=96)
-    ref = st.binned_scan_plain(q, x, add, bin_size=96)
-    rep = st.scan_agreement(got, ref, q, x, add, bin_size=96, packed=False)
+    kw = _scan_kw(x, None, 96, False)
+    got = st.binned_scan(q, x, add, **kw)
+    ref = st.binned_scan_plain(q, x, add, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, **kw)
     assert rep["ok"], rep
 
 
@@ -128,7 +136,8 @@ def _tensor_scan(q, x, add, alpha, bin_size, packed):
     """K1 on the tensor cores, with its launch counted on that route."""
     assert st.scan_cores(x.dtype, x.shape[1], bin_size) == "tensor"
     before = st.launches_by_cores["binned_scan:tensor"]
-    got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed)
+    got = st.binned_scan(q, x, add, alpha,
+                         **_scan_kw(x, alpha, bin_size, packed))
     torch.cuda.synchronize()
     assert st.launches_by_cores["binned_scan:tensor"] == before + 1
     return got
@@ -150,11 +159,10 @@ def test_tensor_scan_matches_plain(dev, kind, bin_size, B, packed):
     add[-37:] = float("inf")
     add[n - bin_size:] = float("inf")
     got = _tensor_scan(q, x, add, alpha, bin_size, packed)
-    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
-                               packed=packed)
+    kw = _scan_kw(x, alpha, bin_size, packed)
+    ref = st.binned_scan_plain(q, x, add, alpha, **kw)
     assert got[0].shape == ref[0].shape == (n // bin_size, B)
-    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
-                            packed=packed, rtol=1e-5)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, rtol=1e-5, **kw)
     assert rep["ok"], rep
     assert torch.isinf(got[0][-1]).all()
     assert (got[1][-1] == n - bin_size).all()
@@ -185,8 +193,8 @@ def test_tensor_scan_ties_go_to_the_lower_row(dev, kind, packed, d):
         qt, xt = torch.from_numpy(q).to(dt_), torch.from_numpy(-2 * x).to(dt_)
     qt, xt = qt.to(dev), xt.to(dev)
     got = _tensor_scan(qt, xt, add, alpha, bin_size, packed)
-    ref = st.binned_scan_plain(qt, xt, add, alpha, bin_size=bin_size,
-                               packed=packed)
+    ref = st.binned_scan_plain(qt, xt, add, alpha,
+                               **_scan_kw(xt, alpha, bin_size, packed))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
@@ -202,15 +210,127 @@ def test_scan_on_the_cuda_cores_when_asked(dev, kind, packed):
     if kind == "float16":
         q, x = q.to(torch.float16), x.to(torch.float16)
     before = st.launches_by_cores["binned_scan:cuda"]
-    got = st.binned_scan(q, x, add, alpha, bin_size=bin_size, packed=packed,
-                         cores="cuda")
+    kw = _scan_kw(x, alpha, bin_size, packed)
+    got = st.binned_scan(q, x, add, alpha, cores="cuda", **kw)
     torch.cuda.synchronize()
     assert st.launches_by_cores["binned_scan:cuda"] == before + 1
-    ref = st.binned_scan_plain(q, x, add, alpha, bin_size=bin_size,
-                               packed=packed)
-    rep = st.scan_agreement(got, ref, q, x, add, alpha, bin_size=bin_size,
-                            packed=packed, rtol=1e-5)
+    ref = st.binned_scan_plain(q, x, add, alpha, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, rtol=1e-5, **kw)
     assert rep["ok"], rep
+
+
+# T1's epilogues: (metric, prescaled, shifted); "angular" scores as ip
+EPILOGUES = [("l2", False, False), ("ip", False, False),
+             ("angular", False, False), ("l2", False, True),
+             ("ip", False, True), ("l2", True, True)]
+
+
+def _epilogue_inputs(n, d, B, kind, metric, prescaled, shifted, seed=0):
+    """Operands of one epilogue: the corpus unscaled (or stored -2x / -x
+    when prescaled), addvec the norms of the rows as stored in ``kind``
+    (0 for ip), +inf on the last 37 rows; qshift the query's squared norm
+    (l2) or the Pallas index's upper bound 1.02 |q| max|x| + 1 (ip)."""
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, kind)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) * 2.0
+                         - 0.5).to(dt_)
+    q = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(dt_)
+    xr, qr = x.float(), q.float()
+    l2 = metric == "l2"
+    add = (xr * xr).sum(-1) if l2 else torch.zeros(n)
+    add[-37:] = float("inf")
+    if prescaled:
+        x = ((-2.0 if l2 else -1.0) * xr).to(dt_)        # exact
+    qshift = None
+    if shifted:
+        qsq = (qr * qr).sum(-1)
+        qshift = qsq if l2 else (1.02 * qsq.sqrt()
+                                 * (xr * xr).sum(-1).sqrt().max() + 1.0)
+    return q, x, add, qshift
+
+
+def _epilogue_check(dev, kind, metric, prescaled, shifted, packed, cores,
+                    d=32, n=4096, B=300, bin_size=1024):
+    q, x, add, qshift = (None if t is None else t.to(dev) for t in
+                         _epilogue_inputs(n, d, B, kind, metric, prescaled,
+                                          shifted))
+    kw = dict(metric=metric, bin_size=bin_size, chunk=n, packed=packed,
+              prescaled=prescaled, transpose=False)
+    before = st.launches_by_cores[f"binned_scan:{cores}"]
+    got = st.binned_scan(q, x, add, qshift, cores=cores, **kw)
+    torch.cuda.synchronize()
+    assert st.launches_by_cores[f"binned_scan:{cores}"] == before + 1
+    ref = st.binned_scan_plain(q, x, add, qshift, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, qshift, rtol=1e-5, **kw)
+    assert rep["ok"], rep
+    return got, ref
+
+
+@pytest.mark.parametrize("kind,cores", [("bfloat16", "tensor"),
+                                        ("bfloat16", "cuda"),
+                                        ("float16", "tensor"),
+                                        ("float16", "cuda"),
+                                        ("float32", "cuda")])
+@pytest.mark.parametrize("metric,prescaled,shifted", EPILOGUES)
+@pytest.mark.parametrize("packed", [False, True])
+def test_epilogues_match_plain(dev, kind, cores, metric, prescaled, shifted,
+                               packed):
+    """Every epilogue of T1 on both routes of K1 (f32 on the CUDA cores
+    only), counted on its route, against the plain version."""
+    got, ref = _epilogue_check(dev, kind, metric, prescaled, shifted, packed,
+                               cores)
+    if shifted and metric == "l2":   # scores are distances: >= ~0
+        assert got[0][torch.isfinite(got[0])].min() > -1e-3
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 160])
+@pytest.mark.parametrize("metric,prescaled,shifted", [("l2", False, False),
+                                                      ("l2", False, True)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_epilogues_at_every_width(dev, d, metric, prescaled, shifted,
+                                  packed):
+    """The tensor-core widths and the wide CUDA-core kernel (d = 160) on
+    the routes scan_cores gives them."""
+    cores = st.scan_cores(torch.bfloat16, d, 1024)
+    assert cores == ("cuda" if d == 160 else "tensor")
+    _epilogue_check(dev, "bfloat16", metric, prescaled, shifted, packed,
+                    cores, d=d)
+
+
+@pytest.mark.parametrize("bin_size", [8, 16, 96])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_epilogues_at_small_bins(dev, bin_size, shifted):
+    """Bins of one row tile, and bins the tensor cores do not take."""
+    packed = bin_size != 96
+    _epilogue_check(dev, "bfloat16", "l2", False, shifted, packed,
+                    st.scan_cores(torch.bfloat16, 32, bin_size),
+                    n=96 * 64, bin_size=bin_size)
+
+
+def test_jax_default_call_on_the_card(dev):
+    """``binned_scan(q, x, add)`` as a JAX caller writes it: unprescaled
+    l2, packed, query-major; f32 queries cast to the corpus type."""
+    q, x, add, _ = (t.to(dev) if t is not None else None for t in
+                    _epilogue_inputs(4096, 32, 300, "bfloat16", "l2", False,
+                                     False))
+    got = st.binned_scan(q.float(), x, add, bin_size=256, chunk=4096)
+    ref = st.binned_scan_plain(q, x, add, bin_size=256, chunk=4096)
+    assert got[0].shape == ref[0].shape == (300, 16)
+    rep = st.scan_agreement(got, ref, q, x, add, bin_size=256, rtol=1e-5)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("valid_b", [1, 250, 300])
+def test_merge_topc_keeps_valid_columns(dev, valid_b):
+    rng = np.random.default_rng(valid_b)
+    vals = torch.from_numpy(rng.standard_normal((992, 300)).astype(
+        np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, 1 << 20, (992, 300)).astype(
+        np.int32)).to(dev)
+    gv, gi = st.merge_topc(vals, ids, 12, valid_b=valid_b)
+    rv, ri = st.merge_topc_plain(vals, ids, 12)
+    assert gv.shape == (valid_b, 12)
+    assert torch.equal(gv, rv[:valid_b]) and torch.equal(gi, ri[:valid_b])
 
 
 @pytest.mark.parametrize("R,B,c,rb", [

@@ -7,7 +7,9 @@
 * the fused scan takes float16, as the JAX one does;
 * the port's entry points take the JAX package's keywords (``tq``;
   ``exact``, ``recall_target``, ``dtype``, ``precision``), so code written
-  for the JAX package runs on the port.
+  for the JAX package runs on the port;
+* the kernels answer to the names JAX callers import (``knn_pallas``,
+  ``dma_row_gather``, ``beam_search_pallas``).
 
 Inputs come from numpy with a seed; JAX runs on the CPU (the Pallas scan in
 interpret mode)."""
@@ -144,7 +146,8 @@ def test_float16_scan_plain_is_exact_products():
     x = torch.from_numpy(rng.normal(size=(2048, 32)).astype(np.float16))
     q = torch.from_numpy(rng.normal(size=(40, 32)).astype(np.float16))
     add = torch.zeros(2048)
-    vals, ids = st.binned_scan(q, -2 * x, add, bin_size=256)
+    vals, ids = st.binned_scan(q, -2 * x, add, bin_size=256, chunk=2048,
+                               packed=False, prescaled=True, transpose=False)
     s = (-2.0 * x.double() @ q.double().T).view(8, 256, 40)
     np.testing.assert_array_equal(ids.numpy() % 256, s.argmin(1).numpy())
     np.testing.assert_allclose(vals.numpy(), s.amin(1).numpy(), rtol=1e-6)
@@ -164,6 +167,8 @@ def _pairs():
     import gbnns_tpu.dimred.train as jtrain
     import gbnns_tpu.eval.bench as jbench
     import gbnns_tpu.eval.trace as jtrace
+    import gbnns_tpu.kernels.distance_topk_pallas as jdtk
+    import gbnns_tpu.kernels.gather_pallas as jgather
     import gbnns_tpu.search.ivf as jivf
     import gbnns_tpu.search.sizing as jsizing
     import gbnns_tpu_torch.kernels.topk as ttopk
@@ -177,6 +182,8 @@ def _pairs():
     import gbnns_tpu_torch.dimred.train as ttrain
     import gbnns_tpu_torch.eval.bench as tbench
     import gbnns_tpu_torch.eval.trace as ttrace
+    import gbnns_tpu_torch.kernels.distance_topk as tdtk
+    import gbnns_tpu_torch.kernels.gather as tgather
     import gbnns_tpu_torch.search.ivf as tivf
     import gbnns_tpu_torch.search.sizing as tsizing
 
@@ -227,6 +234,8 @@ def _pairs():
                               tsizing.HbmBreakdown.fits),
         "HbmBreakdown.as_dict": (jsizing.HbmBreakdown.as_dict,
                                  tsizing.HbmBreakdown.as_dict),
+        "knn_pallas": (jdtk.knn_pallas, tdtk.knn_pallas),
+        "dma_row_gather": (jgather.dma_row_gather, tgather.dma_row_gather),
     }
 
 
@@ -252,7 +261,8 @@ def km_entries():
                                   "time_fn", "time_search", "sweep",
                                   "pareto", "profile_trace", "cost_analysis",
                                   "memory_analysis", "HbmBreakdown.fits",
-                                  "HbmBreakdown.as_dict"])
+                                  "HbmBreakdown.as_dict", "knn_pallas",
+                                  "dma_row_gather"])
 def test_port_takes_every_jax_keyword_in_its_order(name):
     """Every parameter of the JAX entry point is a parameter of the port's,
     in the same order; the port may add its own (``device``, ``stats``)."""
@@ -271,6 +281,53 @@ def test_payload_walker_answers_to_its_jax_name():
                                                        beam_search_payload)
 
     assert beam_search_pallas is beam_search_payload
+
+
+def test_knn_pallas_answers_as_jax():
+    """``knn_pallas`` as JAX callers call it (tests/test_pallas_kernels.py):
+    the port's exact kNN, ids equal to JAX's interpret-mode kernel but for
+    near-ties, distances within 1e-5 of the largest."""
+    from gbnns_tpu.kernels.distance_topk_pallas import knn_pallas as jax_knnp
+    from gbnns_tpu_torch.kernels.distance_topk import (knn_agreement,
+                                                       knn_pallas, knn_topk)
+
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(700, 24)).astype(np.float32)
+    q = rng.normal(size=(40, 24)).astype(np.float32)
+    for metric in ("l2", "ip"):
+        jd, ji = jax_knnp(jnp.asarray(q), jnp.asarray(x), 10, metric=metric,
+                          qt=8, xt=128, interpret=True)
+        qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+        got = knn_pallas(qt, xt, 10, metric=metric, qt=8, xt=128,
+                         interpret=True)
+        want = knn_topk(qt, xt, 10, metric=metric)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ref = (torch.from_numpy(np.array(jd)), torch.from_numpy(np.array(ji)))
+        rep = knn_agreement(got, ref, qt, xt, metric=metric, rtol=1e-5)
+        assert rep["ok"], rep
+
+
+def test_dma_row_gather_answers_as_jax():
+    """``dma_row_gather`` on JAX's (n, S, 128) f32 payload: bit for bit
+    JAX's interpret-mode gather; it refuses what JAX refuses."""
+    from gbnns_tpu.kernels.gather_pallas import dma_row_gather as jax_dma
+    from gbnns_tpu_torch.kernels.gather import dma_row_gather
+
+    rng = np.random.default_rng(17)
+    payload = rng.normal(size=(300, 16, 128)).astype(np.float32)
+    idx = rng.integers(0, 300, 77).astype(np.int32)
+    want = np.asarray(jax_dma(jnp.asarray(payload), jnp.asarray(idx),
+                              interpret=True))
+    got = dma_row_gather(torch.from_numpy(payload), torch.from_numpy(idx),
+                         interpret=True)
+    assert got.shape == (77, 16, 128)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    with pytest.raises(ValueError, match="tiled"):
+        dma_row_gather(torch.zeros(4, 12, 128), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32"):
+        dma_row_gather(torch.zeros(4, 8, 128, dtype=torch.float64),
+                       torch.zeros(2, dtype=torch.int32))
 
 
 def test_flat_search_takes_jax_calls(fixture_data):

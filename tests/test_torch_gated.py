@@ -235,5 +235,6 @@ def test_wrappers_never_fall_back():
         st.gated_topm_scan(q, x.to(torch.bfloat16), add, keep, **GEOMETRY)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         st.binned_scan(q.to(torch.float16), x.to(torch.float16), add,
-                       bin_size=64)
+                       bin_size=64, chunk=x.shape[0], packed=False,
+                       prescaled=True, transpose=False)
     assert st.launches == before

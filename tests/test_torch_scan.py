@@ -55,11 +55,12 @@ def test_binned_scan_plain_matches_pallas(quant, packed, metric):
                       **kw)
     ref = (torch.from_numpy(np.asarray(jv)[:, :B].copy()),
            torch.from_numpy(np.asarray(ji)[:, :B].copy()))
-    got = st.binned_scan_plain(*mine, bin_size=BIN, packed=packed)
+    skw = dict(metric=metric, bin_size=BIN, chunk=512, packed=packed,
+               transpose=False, **kw)
+    got = st.binned_scan_plain(*mine, **skw)
     assert got[0].shape == (N // BIN, B) and got[1].dtype == torch.int32
     # same inputs; fp32 sums in another order: ids equal except near-ties
-    rep = st.scan_agreement(got, ref, *mine, bin_size=BIN, packed=packed,
-                            rtol=1e-5)
+    rep = st.scan_agreement(got, ref, *mine, rtol=1e-5, **skw)
     assert rep["ok"], rep
     assert rep["id_mismatches"] <= 2
 
@@ -67,22 +68,34 @@ def test_binned_scan_plain_matches_pallas(quant, packed, metric):
 def test_binned_scan_routes_cpu_tensors_to_plain():
     _, _, mine = _inputs(False, "l2", seed=5)
     before = dict(st.launches)
-    got = st.binned_scan(*mine, bin_size=BIN)
-    ref = st.binned_scan_plain(*mine, bin_size=BIN)
+    skw = dict(bin_size=BIN, chunk=N, packed=False, prescaled=True,
+               transpose=False)
+    got = st.binned_scan(*mine, **skw)
+    ref = st.binned_scan_plain(*mine, **skw)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert st.launches == before          # nothing launched on the CPU
 
 
 def test_binned_scan_validates_inputs():
+    """The Pallas scan's checks (a chunk that does not divide the corpus or
+    take whole bins, a packed bin that is not a power of two, quant
+    without int8 operands or alpha) and the port's refusals (a corpus type
+    without a kernel, an int8 corpus without quant)."""
     _, _, (q, x, add, _) = _inputs(False, "l2", seed=6)
+    kw = dict(bin_size=BIN, chunk=N, prescaled=True)
     with pytest.raises(TypeError):
-        st.binned_scan(q.float(), x, add, bin_size=BIN)
+        st.binned_scan(q, x.double(), add, **kw)
     with pytest.raises(ValueError):
-        st.binned_scan(q, x[:1000], add[:1000], bin_size=BIN)
+        st.binned_scan(q, x[:1000], add[:1000], **kw)
     with pytest.raises(ValueError):
-        st.binned_scan(q, x, add, bin_size=96, packed=True)
+        st.binned_scan(q, x, add, bin_size=96, chunk=960, packed=True)
     with pytest.raises(ValueError):
-        st.binned_scan(q, x, add, torch.ones(B), bin_size=BIN)
+        st.binned_scan(q, x, add, torch.ones(B), quant=True, **kw)
+    _, _, (qi, xi, addi, alpha) = _inputs(True, "l2", seed=6)
+    with pytest.raises(ValueError, match="quant=True needs qshift"):
+        st.binned_scan(qi, xi, addi, quant=True, **kw)
+    with pytest.raises(ValueError, match="quant=True"):
+        st.binned_scan(qi, xi, addi, alpha, **kw)
 
 
 def _winners(R, Bq, seed):

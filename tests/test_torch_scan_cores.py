@@ -122,8 +122,10 @@ def test_a_route_asked_for_gives_the_same_scan(kind, cores):
     else:
         x = x.to(getattr(torch, kind))
     add = torch.zeros(256)
-    got = st.binned_scan(x[:5], x, add, alpha, bin_size=64, cores=cores)
-    ref = st.binned_scan_plain(x[:5], x, add, alpha, bin_size=64)
+    kw = dict(bin_size=64, chunk=256, packed=False, transpose=False,
+              **(dict(quant=True) if kind == "int8" else dict(prescaled=True)))
+    got = st.binned_scan(x[:5], x, add, alpha, cores=cores, **kw)
+    ref = st.binned_scan_plain(x[:5], x, add, alpha, **kw)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
@@ -219,7 +221,8 @@ def test_cpu_scans_count_no_launch():
     x = torch.from_numpy(rng.normal(size=(256, 32)).astype(np.float32))
     st.reset_launches()
     st.binned_scan(x[:5].to(torch.bfloat16), x.to(torch.bfloat16),
-                   torch.zeros(256), bin_size=64)
+                   torch.zeros(256), bin_size=64, chunk=256, packed=False,
+                   prescaled=True, transpose=False)
     assert not any(st.launches_by_cores.values())
 
 
