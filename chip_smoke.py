@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU: the fused
 scan (binned and shifted), the cluster-gated scan, the IVF index, the
 projection trainer, the exact fused kNN, the graph walker, the experiment
-driver and the sharded engine.
+driver, the sharded engine and the unreduced high-dimensional path.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,7 @@ each printing its wall time:
    reduced width of 160; K2 merge_topc, bit-equal, also timed as the
    device time of CUDA-graph replays) against its plain PyTorch version
    on the serving shapes, on the route scan_cores gives it (tensor cores
-   for bf16, fp16 and int8 at d = 32; CUDA cores for f32 and d = 160),
+   for bf16, fp16 and int8 at d = 32 and 160; CUDA cores for f32),
    with its time, the CUDA-core kernel's on the same inputs (the only
    route before the tensor-core redesign), the plain version's, one
    PyTorch library call's (int8 and f32: torch._int_mm and an fp32
@@ -34,7 +34,9 @@ each printing its wall time:
    fp16 l2 packed), each once with its launch counted on its route, then
    against its plain version with its record; the flip-free key's time
    against the flipped one's on an earlier line; the CUDA-core route on
-   2,048 unprescaled f32 queries and at d = 160;
+   2,048 unprescaled f32 queries, and d = 160 (the tensor cores, both
+   operands staged in shared memory, beside the CUDA-core kernel's time),
+   where every other epilogue is held against plain too;
 4. serving: SearchService(engine="fused") in bf16 (c = 12) and int8
    (c = 16): requests through submit() and HTTP /search, /search_raw on an
    ephemeral localhost port, then the 16,384 queries, with R@1, R@10 and
@@ -132,7 +134,31 @@ each printing its wall time:
    (c = 32) against their plain versions with their records. Every time
    is of 8 shards sharing one card: the per-shard kernels and the merge,
    not the speed of several cards;
-16. teardown: services stopped, HTTP servers shut down, threads joined.
+16. the unreduced high-dimensional path (GIST1M's 960 dimensions): the
+   registry's gist1m stand-in from the port's own generator with io.datasets'
+   recipe (1,000,000 x 960, l2, seed 0) and 16,384 queries, its generation
+   time, the exact fp32 ground truth on the card; the fused engine
+   (FusedScanIndex over the full vectors: base_lo is base) served through
+   SearchService in bf16 (c = 12) and int8 (c = 16) as in phase 4, with R@1,
+   R@10, request times and the launch counts set to 0 before the main request
+   and read after (every K1 launch on the tensor cores, one K2 a K1), R@10 at
+   least 0.95; each K1 held against plain on all 16,384 queries, and its
+   record: ms at B = 16,384, the bound 2·B·n_pad·d at its kind's rate, the
+   plain version and the CUDA-core kernel (``earlier_ms``) on 2,048 queries,
+   and the bf16 torch.matmul or int8 torch._int_mm over blocks of the
+   corpus; T1's
+   unprescaled and shifted epilogues at d = 960 on 2,048 queries against plain
+   (as at d = 160); GatedScanIndex at its defaults at probes 16 (one T4
+   launch, on the wide CUDA-core kernel) with R@1, R@10, the kept share and
+   search times, T4 against its plain version with its record; and
+   FusedScanIndex(mode="shifted", bf16), whose corpus is d + 4 = 964 columns
+   padded to 968 (16-byte rows), one T3 launch on the tensor cores and no K2 a
+   search, with R@10 within 0.005 of this phase's binned bf16; T3 against
+   plain on all 16,384 queries, its wide CUDA-core kernel and T3 at the
+   unpadded 964 (padded by the wrapper) on 2,048, and its record; the phase
+   prints its own time and frees its
+   arrays;
+17. teardown: services stopped, HTTP servers shut down, threads joined.
 
 The last two lines are the kernels' JSON record and the device line. Any
 failed check exits non-zero; without a CUDA device the script exits 1 before
@@ -216,8 +242,20 @@ SHARDS = 8
 SHARDED_EF = 32
 SHARDED_NCENT = 64
 SHARDED_R10_MIN = 0.95
+# the unreduced high-dimensional path: the registry's gist1m stand-in
+# (io.datasets: 1,000,000 x 960, l2) from the port's own generator with
+# io.datasets' recipe and 16,384 queries; the fused engine served in bf16
+# and int8 at each one's c, the gated scan at probes 16 and the shifted
+# scan in bf16, all at the full width; the plain versions and the CUDA-core
+# kernels timed on a slice of the queries
+GIST = "gist1m"
+GIST_QUERIES = 16384
+GIST_SLICE = 2048
+GIST_PROBES = 16
+GIST_R10_MIN = 0.95    # the full-width scan's winners hold the true top-10
 SCAN_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_topk.cu"
 K1_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_k1.cuh"
+K1_WIDE_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/scan_wide.cu"
 SHIFTED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/shifted_scan.cu"
 GATED_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gated_topm.cu"
 GATHER_SOURCE = "src/gbnns_tpu_torch/kernels/csrc/gather.cu"
@@ -606,6 +644,38 @@ def _epilogue_operands(lo, q, kind, metric: str, shifted: bool):
     return q.to(kind), x, add, qshift
 
 
+def epilogue_agreements(lo, q, width_label: str) -> None:
+    """``binned_scan`` in each of T1's EPILOGUES on the rows ``lo`` (n, d)
+    f32 numpy and the queries ``q`` on the card, held against its plain
+    version (values within SCAN_RTOL plus a key quantum, ids equal except
+    at counted near-ties), each launch counted on the route scan_cores
+    gives it; no record."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    for label, name, kw, shifted in EPILOGUES:
+        kind = getattr(torch, name)
+        args = _epilogue_operands(lo, q, kind, kw["metric"], shifted)
+        kw = dict(kw, bin_size=1024, chunk=16384, transpose=False)
+        cores = st.scan_cores(kind, args[0].shape[1], 1024)
+        before = route_counts(st, "binned_scan")[cores]
+        got = st.binned_scan(*args, **kw)
+        ref = st.binned_scan_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if q.device.type == "cuda":
+            check(route_counts(st, "binned_scan")[cores] == before + 1,
+                  f"K1 [{label},{width_label}] did not launch on the "
+                  f"{cores} cores")
+        rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
+        say(f"K1 binned_scan[{label},{width_label}] vs plain ({cores} "
+            f"cores, {q.shape[0]} queries): {rep}")
+        check(rep["ok"], f"K1 [{label},{width_label}] disagrees with its "
+              f"plain version")
+        del args, got, ref
+        torch.cuda.empty_cache()
+
+
 def epilogue_checks(base_lo, qlo, device, records, *, lo160=None,
                     q160=None) -> None:
     """T1's unprescaled and shifted epilogues (binned_scan with JAX's
@@ -692,6 +762,7 @@ def epilogue_checks(base_lo, qlo, device, records, *, lo160=None,
     if lo160 is not None:
         one("unprescaled,d=160,l2,packed", lo160, q160, torch.bfloat16,
             dict(metric="l2"), False, matmul)
+        epilogue_agreements(lo160, q160, "d=160")
     torch.cuda.empty_cache()
 
 
@@ -1164,13 +1235,17 @@ def _gated_operands(idx, ql, probes: int):
     return args, kw, b_ms, b_by, cells, keep.numel(), chunks
 
 
-def gated_check(idx, ql, records) -> None:
+def gated_check(idx, ql, records, name: str = "gated_topm",
+                wide: bool = False) -> None:
     """T4 against its plain version on all queries planned at probes 16, on
     the route ``gated_cores`` gives it (the launch is counted there) and on
     the CUDA cores, with its time, the CUDA-core kernel's on the same
     operands (``earlier_ms``, its error ``earlier_max_abs_err``),
     the plain version's, its bound from this run's kept cells and the full
-    bf16 matmul at this shape as a yardstick."""
+    bf16 matmul at this shape as a yardstick; its record goes under
+    ``name``. ``wide``: a width no kernel took before (``earlier_ms``
+    None) and the matmul over blocks of the corpus, whose whole product
+    would not fit."""
     import torch
 
     from gbnns_tpu_torch.kernels import scan_topk as st
@@ -1202,27 +1277,36 @@ def gated_check(idx, ql, records) -> None:
         check(earlier_rep["ok"],
               "T4's CUDA-core kernel disagrees with its plain version")
     del got, ref
-    ms = time_ms(lambda: st.gated_topm_scan(*args, **kw))
+    ms = time_ms(lambda: st.gated_topm_scan(*args, **kw), 2 if wide else 5)
     earlier_ms = (ms if cores == "cuda" else time_ms(
         lambda: st.gated_topm_scan(*args, **kw, cores="cuda")))
     plain_ms = time_ms(lambda: st.gated_topm_scan_plain(*args, **kw), 2)
-    yard_ms = time_ms(lambda: torch.matmul(idx.x_lo, q_scan.T), 3)
+    if wide:
+        earlier_ms = None
+        qt = q_scan.T
+        yard_ms = chunked_ms(lambda b: torch.matmul(b, qt), idx.x_lo,
+                             YARDSTICK_ROWS)
+    else:
+        yard_ms = time_ms(lambda: torch.matmul(idx.x_lo, q_scan.T), 3)
     torch.cuda.empty_cache()
     say(f"T4 [B={q_scan.shape[0]} n_pad={idx.x_lo.shape[0]} "
         f"d={q_scan.shape[1]} tq={kw['tq']}, kept {cells}/{n_cells} cells, "
         f"{chunks}/{idx.n_chunks} chunks] on the {cores} cores: {ms:.3f} ms "
-        f"(CUDA-core kernel {earlier_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+        + (f"(CUDA-core kernel {earlier_ms:.3f} ms), "
+           if earlier_ms is not None
+           else "(no kernel took this width before), ")
+        + f"plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
         f"computes a gated top-m), yardstick: the full bf16 matmul at this "
         f"shape {yard_ms:.3f} ms")
-    records["gated_topm"] = {
-        **dict(name="gated_topm", route="cuda", source=GATED_SOURCE,
+    records[name] = {
+        **dict(name=name, route="cuda", source=GATED_SOURCE,
                replaces=REPLACES["gated_topm"], launches=None,
                max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                yardstick_ms=yard_ms, cores=cores, earlier_ms=earlier_ms,
                earlier_max_abs_err=earlier_rep["max_abs_err"]),
-        **records.get("gated_topm", {})}
+        **records.get(name, {})}
 
 
 def gated_scan(base, query, base_lo, gt, trained, device, records,
@@ -2002,6 +2086,378 @@ def sharded_phase(base, query, base_lo, gt, trained, device, records,
                      name="row_gather[sharded]")
 
 
+def _unreduced_scan_record(st, idx, qf, label: str) -> dict:
+    """K1 of FusedScanIndex ``idx`` (the full width) on all of ``qf`` and
+    its record: held against its plain version on all of ``qf``, the
+    operands of the served request (values within SCAN_RTOL plus a key
+    quantum, ids equal except at counted near-ties); ``ms`` at the full
+    batch, the same kernel on the first GIST_SLICE queries (``slice_ms``),
+    the plain version (``plain_ms``) and the CUDA-core kernel, the route
+    before the tensor-core one (``earlier_ms``), on that slice; the bound
+    2·B·n_pad·d at the kind's rate; the library yardstick over blocks of
+    the corpus (bf16 torch.matmul, int8 torch._int_mm)."""
+    import torch
+
+    q_scan, alpha = idx.scan_queries(qf)
+    kw = dict(idx.scan_kw(), transpose=False)
+    args = (q_scan, idx.x_lo, idx.addvec, alpha)
+    sl = (q_scan[:GIST_SLICE], idx.x_lo, idx.addvec,
+          None if alpha is None else alpha[:GIST_SLICE])
+    B, d = q_scan.shape
+    cores = st.scan_cores(idx.x_lo.dtype, d, idx.bin_size)
+    before = route_counts(st, "binned_scan")[cores]
+    got = st.binned_scan(*args, **kw)
+    ref = st.binned_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if q_scan.device.type == "cuda":
+        check(route_counts(st, "binned_scan")[cores] == before + 1,
+              f"K1 {label} did not launch on the {cores} cores")
+    rep = st.scan_agreement(got, ref, *args, rtol=SCAN_RTOL, **kw)
+    say(f"K1 binned_scan[{label}] vs plain ({cores} cores, {B} "
+        f"queries): {rep}")
+    check(rep["ok"], f"K1 {label} disagrees with its plain version")
+    del got, ref
+    ms = time_ms(lambda: st.binned_scan(*args, **kw), 3)
+    slice_ms = time_ms(lambda: st.binned_scan(*sl, **kw), 3)
+    earlier_ms = time_ms(lambda: st.binned_scan(*sl, **kw, cores="cuda"), 1)
+    plain_ms = time_ms(lambda: st.binned_scan_plain(*sl, **kw), 1)
+    qt = q_scan.T
+    if idx.quant:
+        lib_ms = chunked_ms(lambda b: torch._int_mm(b, qt), idx.x_lo,
+                            YARDSTICK_ROWS)
+    else:
+        lib_ms = chunked_ms(lambda b: torch.matmul(b, qt), idx.x_lo,
+                            YARDSTICK_ROWS)
+    torch.cuda.empty_cache()
+    n_pad = idx.x_lo.shape[0]
+    el = q_scan.element_size()
+    n_bytes = (B * d * el + n_pad * d * el + n_pad * 4
+               + (B * 4 if alpha is not None else 0)
+               + n_pad // idx.bin_size * B * 8)
+    dtype = str(idx.x_lo.dtype).removeprefix("torch.")
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * B * n_pad * d, dtype)
+    say(f"K1 [{label}] B={B} n_pad={n_pad} d={d} on the {cores} cores: "
+        f"{ms:.3f} ms ({ms / b_ms:.2f}x its bound {b_ms:.3f} ms, {b_by}); "
+        f"library {lib_ms:.3f} ms; on {GIST_SLICE} queries {slice_ms:.3f} "
+        f"ms, the CUDA-core kernel {earlier_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    return dict(name=f"binned_scan[{label}]", route="cuda",
+                source=K1_WIDE_SOURCE, replaces=REPLACES["binned_scan"],
+                launches=None, max_abs_err=rep["max_abs_err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, cores=cores, earlier_ms=earlier_ms,
+                slice_ms=slice_ms, slice_queries=GIST_SLICE,
+                near_ties=rep["near_ties"])
+
+
+def _unreduced_fused(dtype, base, query, gt, device, records, targets: bool,
+                     timed: int) -> dict:
+    """SearchService(engine="fused") over the full-width corpus (its
+    FusedScanIndex scans the 960 columns themselves: base_lo is base)."""
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.serve import SearchService
+
+    c = REFERENCE[dtype]["c"]
+    d = base.shape[1]
+    t0 = time.perf_counter()
+    svc = SearchService(base, None, engine="fused", c=c, scan_dtype=dtype,
+                        max_batch=4096, device=device)
+    say(f"SearchService(fused, {dtype}, c={c}) over {GIST} at d={d} up: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def direct(rows):
+        return svc.fused.search(rows, k=10, c=c)[0].cpu().numpy()
+
+    label = f"{dtype},d={d}"
+    out = _serve(svc, f"unreduced fused {dtype} c={c} d={d}", query, gt,
+                 direct, {st: ("binned_scan", "merge_topc")}, timed)
+    counts = out["launches"]
+    x = svc.fused.x_lo
+    main_path_route(records if device.type == "cuda" else {},
+                    f"binned_scan[{label}]", "binned_scan",
+                    st.scan_cores(x.dtype, x.shape[1], svc.fused.bin_size),
+                    {k: out["launches_by_cores"][f"binned_scan:{k}"]
+                     for k in ("tensor", "cuda")}, device,
+                    f"unreduced fused {dtype}")
+    if device.type == "cuda":
+        check(counts["binned_scan"] > 0
+              and counts["merge_topc"] == counts["binned_scan"],
+              f"the unreduced {dtype} run launched {counts}, not one K2 a "
+              f"K1")
+        rec = _unreduced_scan_record(st, svc.fused,
+                                     torch.from_numpy(query).to(device),
+                                     label)
+        name = rec["name"]
+        records[name] = {**rec, **records[name],
+                         "launches": counts["binned_scan"]}
+    if targets:
+        check(out["r10"] >= GIST_R10_MIN,
+              f"unreduced fused {dtype} R@10 {out['r10']:.4f} < "
+              f"{GIST_R10_MIN}")
+    svc.fused = svc.flat = None
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _unreduced_searches(search, query, gt, timed: int, label: str,
+                        device) -> dict:
+    """One search of all queries (with the launch counts set to 0 before
+    and read after by the caller) has run; ``timed`` more, synchronized,
+    on the host clock. Returns their milliseconds."""
+    import numpy as np
+    import torch
+
+    batch_s = []
+    for _ in range(timed):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    med = float(np.median(batch_s))
+    say(f"{label}: {med * 1e3:.2f} ms a search of {query.shape[0]} queries "
+        f"(median of {timed}; all {[round(t * 1e3, 2) for t in batch_s]})")
+    return {"search_ms": [t * 1e3 for t in batch_s], "qps":
+            query.shape[0] / med}
+
+
+def _unreduced_gated(base, query, gt, device, records, targets: bool,
+                     timed: int) -> dict:
+    """GatedScanIndex at its defaults over the full-width corpus, one search
+    at probes GIST_PROBES (one T4 launch, on the route gated_cores gives
+    the width: the wide CUDA-core kernel), then T4 against its plain
+    version with its record."""
+    import torch
+
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels import scan_topk as st
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    t0 = time.perf_counter()
+    idx = GatedScanIndex(base, device=device)
+    secs = ", ".join(f"{k} {v:.2f} s" for k, v in idx.build_seconds.items())
+    say(f"GatedScanIndex over {GIST} at d={base.shape[1]}: "
+        f"{time.perf_counter() - t0:.2f} s ({secs}); stats {idx.stats}")
+    qf = torch.from_numpy(query).to(device)
+    st.reset_launches()
+    ids, _, kept = idx.search(qf, k=10, c=GATED_C, probes=GIST_PROBES,
+                              return_kept_frac=True)
+    ids = ids.cpu().numpy()
+    launches = st.launches["gated_topm"]
+    by_cores = route_counts(st, "gated_topm")
+    cores = st.gated_cores(idx.x_lo.dtype, idx.x_lo.shape[1], fine=idx.fine,
+                           tq=idx.plan(qf)[2])
+    r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+    check(ids.shape == (query.shape[0], 10) and ids.min() >= 0
+          and ids.max() < base.shape[0], "unreduced gated ids out of range")
+    label = f"unreduced gated probes={GIST_PROBES} c={GATED_C}"
+    out = {"engine": label, "r1": r1, "r10": r10, "kept_frac": kept,
+           "launches": {"gated_topm": launches}, "launches_by_cores": by_cores,
+           **_unreduced_searches(
+               lambda: idx.search(qf, k=10, c=GATED_C, probes=GIST_PROBES),
+               query, gt, timed, label, device)}
+    say(f"{label}: R@1={r1:.4f} R@10={r10:.4f} kept {kept:.4f} of cells, "
+        f"T4 launches {launches} on the {cores} cores, by route {by_cores}")
+    say(json.dumps(out))
+    if device.type == "cuda":
+        check(launches == 1 and by_cores[cores] == 1,
+              f"the unreduced gated search launched T4 {by_cores}, not once "
+              f"on the {cores} cores")
+        name = f"gated_topm[d={base.shape[1]}]"
+        gated_check(idx, qf, records, name=name, wide=True)
+        records[name].update(launches=launches, launches_by_cores=by_cores)
+    del idx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _unreduced_shifted_record(st, idx, qf, records, name: str,
+                              cores: str) -> None:
+    """T3 of the shifted FusedScanIndex ``idx`` on all of ``qf`` and its
+    record under ``name``: held against its plain version on all of ``qf``
+    (the search's operands) on its route, and on the first GIST_SLICE
+    queries on the wide CUDA-core kernel and at the unpadded width d + 4
+    (which the wrapper pads to the stored width); ``ms`` at the full
+    batch, the slice's times, the bound 2·B·n_pad·d_aug at the bf16 rate
+    and a bf16 torch.matmul over blocks of the corpus."""
+    import torch
+
+    width = idx.x_aug.shape[1]
+    q_aug = idx.shifted_queries(qf).to(torch.bfloat16)
+    qs = q_aug[:GIST_SLICE]
+    kw = dict(bin_size=idx.bin_size)
+    got = st.shifted_scan(q_aug, idx.x_aug, **kw)
+    ref = st.shifted_scan_plain(q_aug, idx.x_aug, **kw)
+    rep = st.shifted_agreement(got, ref, q_aug, idx.x_aug, rtol=SCAN_RTOL,
+                               **kw)
+    say(f"T3 shifted_scan[d_aug={width}] vs plain ({cores} cores, "
+        f"{q_aug.shape[0]} queries): {rep}")
+    check(rep["ok"], "the wide T3 disagrees with its plain version")
+    ref = st.shifted_scan_plain(qs, idx.x_aug, **kw)
+    got = st.shifted_scan(qs, idx.x_aug, **kw, cores="cuda")
+    cuda_rep = st.shifted_agreement(got, ref, qs, idx.x_aug,
+                                    rtol=SCAN_RTOL, **kw)
+    say(f"T3 shifted_scan[d_aug={width}] vs plain (cuda cores, "
+        f"{GIST_SLICE} queries): {cuda_rep}")
+    check(cuda_rep["ok"],
+          "the wide CUDA-core T3 disagrees with its plain version")
+    # the unpadded width d + 4, as a direct caller of shifted_scan may pass
+    # it (padded by the wrapper to the stored width)
+    d_aug = st.scan_width(idx.d_lo) + 4
+    x_d = idx.x_aug[:, :d_aug].contiguous()
+    q_d = qs[:, :d_aug].contiguous()
+    got = st.shifted_scan(q_d, x_d, **kw)
+    d_rep = st.shifted_agreement(got, ref, q_d, x_d, rtol=SCAN_RTOL,
+                                 **kw)
+    say(f"T3 shifted_scan[d_aug={d_aug}] vs plain ({cores} cores, "
+        f"{GIST_SLICE} queries): {d_rep}")
+    check(d_rep["ok"], f"T3 at d_aug {d_aug} disagrees with its plain "
+          f"version")
+    d_ms = time_ms(lambda: st.shifted_scan(q_d, x_d, **kw), 3)
+    del got, ref, x_d, q_d
+    ms = time_ms(lambda: st.shifted_scan(q_aug, idx.x_aug, **kw), 3)
+    slice_ms = time_ms(lambda: st.shifted_scan(qs, idx.x_aug, **kw), 3)
+    cuda_ms = time_ms(lambda: st.shifted_scan(qs, idx.x_aug, **kw,
+                                              cores="cuda"), 1)
+    plain_ms = time_ms(lambda: st.shifted_scan_plain(qs, idx.x_aug,
+                                                     **kw), 1)
+    qt = q_aug.T
+    lib_ms = chunked_ms(lambda b: torch.matmul(b, qt), idx.x_aug,
+                        YARDSTICK_ROWS)
+    torch.cuda.empty_cache()
+    B = q_aug.shape[0]
+    n_pad = idx.x_aug.shape[0]
+    b_ms, b_by = bound_ms(B * width * 2 + n_pad * width * 2
+                          + n_pad // idx.bin_size * B * 8,
+                          2.0 * B * n_pad * width, "bfloat16")
+    say(f"T3 [B={B} n_pad={n_pad} d_aug={width}] on the {cores} cores: "
+        f"{ms:.3f} ms ({ms / b_ms:.2f}x its bound {b_ms:.3f} ms, "
+        f"{b_by}); bf16 torch.matmul over blocks {lib_ms:.3f} ms; on "
+        f"{GIST_SLICE} queries {slice_ms:.3f} ms (at d_aug {d_aug} "
+        f"{d_ms:.3f} ms), the wide CUDA-core kernel {cuda_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
+    records[name] = {
+        **dict(name=name, route="cuda", source=SHIFTED_SOURCE,
+               replaces=REPLACES["shifted_scan"],
+               max_abs_err=rep["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               earlier_ms=None, cuda_cores_ms=cuda_ms, slice_ms=slice_ms,
+               slice_queries=GIST_SLICE, unpadded_d_aug=d_aug,
+               unpadded_slice_ms=d_ms),
+        **records.get(name, {})}
+
+
+def _unreduced_shifted(base, query, gt, device, records, binned_r10: float,
+                       targets: bool, timed: int) -> dict:
+    """FusedScanIndex(mode="shifted", bf16) over the full-width corpus
+    (d_aug = d + 4): one search of all queries (one T3 launch on the tensor
+    cores, no K2), timed searches, R@10 beside the binned bf16 of this
+    phase; on the card T3 against its plain version and its record."""
+    import torch
+
+    from gbnns_tpu_torch.eval.recall import recall_at_k
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    c = REFERENCE["bfloat16"]["c"]
+    t0 = time.perf_counter()
+    idx = st.FusedScanIndex(base, mode="shifted", scan_dtype="bfloat16",
+                            device=device)
+    width = idx.x_aug.shape[1]
+    say(f"FusedScanIndex(shifted, bf16) over {GIST}: "
+        f"{time.perf_counter() - t0:.2f} s; d_aug = {width}")
+    qf = torch.from_numpy(query).to(device)
+    st.reset_launches()
+    ids = idx.search(qf, k=10, c=c)[0].cpu().numpy()
+    counts = {k: st.launches[k] for k in ("shifted_scan", "merge_topc")}
+    by_cores = route_counts(st, "shifted_scan")
+    r1, r10 = recall_at_k(ids, gt, 1), recall_at_k(ids, gt, 10)
+    label = f"unreduced fused shifted bfloat16 c={c} d_aug={width}"
+    out = {"engine": label, "r1": r1, "r10": r10, "launches": counts,
+           "launches_by_cores": by_cores,
+           **_unreduced_searches(lambda: idx.search(qf, k=10, c=c), query,
+                                 gt, timed, label, device)}
+    say(f"{label}: R@1={r1:.4f} R@10={r10:.4f} (binned bf16 of this phase "
+        f"{binned_r10:.4f}), launches {counts}, by route {by_cores}")
+    say(json.dumps(out))
+    cores = st.shifted_cores(idx.x_aug.dtype, width, idx.bin_size)
+    name = f"shifted_scan[d_aug={width}]"
+    main_path_route(records if device.type == "cuda" else {}, name,
+                    "shifted_scan", cores, by_cores, device,
+                    "unreduced fused shifted")
+    if targets:
+        check(abs(r10 - binned_r10) <= R10_TOL,
+              f"unreduced shifted R@10 {r10:.4f} is not within {R10_TOL} "
+              f"of the binned bf16 {binned_r10:.4f}")
+    if device.type == "cuda":
+        check(counts == {"shifted_scan": 1, "merge_topc": 0},
+              f"an unreduced shifted search launched {counts}")
+        _unreduced_shifted_record(st, idx, qf, records, name, cores)
+        records[name]["launches"] = counts["shifted_scan"]
+    del idx
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def unreduced_phase(device, records, targets: bool, timed: int,
+                    n: int = 1_000_000, nq: int = GIST_QUERIES) -> None:
+    """The unreduced high-dimensional path at GIST1M's width: the
+    registry's stand-in (n x 960 at the default n), its exact fp32 ground
+    truth on the device, the fused engine served in bf16 and int8, the
+    gated scan at probes GIST_PROBES and the shifted scan in bf16, each
+    with its kernel held against its plain version and its record. Frees
+    its arrays at the end."""
+    import torch
+
+    from gbnns_tpu_torch.eval.recall import exact_ground_truth
+    from gbnns_tpu_torch.io.datasets import DATASETS
+    from gbnns_tpu_torch.io.synthetic import SyntheticSpec, make_synthetic
+
+    info = DATASETS[GIST]
+    t0 = time.perf_counter()
+    data = make_synthetic(SyntheticSpec(
+        n_base=n, n_query=nq, dim=info.dim, metric=info.metric,
+        n_clusters=max(16, min(1024, n // 1000)), seed=0))
+    base, query = data["base"], data["query"]
+    del data
+    say(f"{GIST} stand-in ({info.metric}, io.datasets' recipe, seed 0): "
+        f"base {base.shape} queries {query.shape}, generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gt = exact_ground_truth(query, base, k=10, device=device)
+    say(f"exact fp32 ground truth on the {device.type}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    timed = min(timed, 3)
+    served = {}
+    for dtype in ("bfloat16", "int8"):
+        t0 = time.perf_counter()
+        served[dtype] = _unreduced_fused(dtype, base, query, gt, device,
+                                         records, targets, timed)
+        say(f"unreduced fused {dtype}: {time.perf_counter() - t0:.2f} s")
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        epilogue_agreements(base, torch.from_numpy(
+            query[:GIST_SLICE]).to(device), f"d={base.shape[1]}")
+        say(f"T1's epilogues at d = {base.shape[1]}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _unreduced_gated(base, query, gt, device, records, targets, timed)
+    say(f"unreduced gated: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _unreduced_shifted(base, query, gt, device, records,
+                       served["bfloat16"]["r10"], targets, timed)
+    say(f"unreduced shifted: {time.perf_counter() - t0:.2f} s")
+    del base, query, gt
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
          proj_file: str = "bench_proj_n1000000_d128x32_s600_sel_seed1.npz",
          targets: bool = True, timed: int = 10,
@@ -2073,6 +2529,9 @@ def main(device_name: str = "cuda", n: int = 1_000_000, nq: int = 16384,
     with Phase("sharded"):
         sharded_phase(base, query, base_lo, gt, trained, device, records,
                       targets, timed)
+    del base, query, base_lo, gt
+    with Phase(f"unreduced {GIST} (d = 960)"):
+        unreduced_phase(device, records, targets, timed, n=n, nq=nq)
     with Phase("teardown"):
         if device.type == "cuda":
             torch.cuda.synchronize()

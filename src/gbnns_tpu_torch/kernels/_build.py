@@ -27,9 +27,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / ".kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# A library's sources beside <name>.cu: K1's unprescaled and shifted
-# epilogues compile apart from the rest of libscan_topk.so, in parallel
-PARTS = {"scan_topk": ("scan_epilogue",)}
+# A library's sources beside <name>.cu, compiled apart from it, in
+# parallel: K1's unprescaled and shifted epilogues and its tensor-core
+# kernels at d > 128 (libscan_topk.so), T4 at d > 128 (libgated_topm.so)
+PARTS = {"scan_topk": ("scan_epilogue", "scan_wide"),
+         "gated_topm": ("gated_wide",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,9 @@
 // the element kinds of the C interfaces, the IEEE-f32 total-order flip, the
 // exact widening of 16-bit floats to f32, inline-PTX wrappers of the
 // sm_80+ warp-level tensor-core product (mma.sync), ldmatrix and cp.async,
-// and the bin loop of the tensor-core scans K1 and T3 (tc_scan_bin).
+// and the bin loops of the tensor-core scans K1 and T3: tc_scan_bin (query
+// fragments in registers, d <= 128 for K1) and tc_scan_bin_wide (both
+// operands staged in shared memory, any width).
 // Plain CUDA: no PyTorch header and no template library.
 
 #pragma once
@@ -11,6 +13,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace gbnns {
 
@@ -499,6 +503,497 @@ __device__ __forceinline__ void tc_scan_bin(
 template <int KS>
 inline int tc_query_tiles(int B) {
   return (B + TcShape<KS>::kQueries - 1) / TcShape<KS>::kQueries;
+}
+
+
+// An asynchronous copy of `n` bytes (0 or 16, cached in L2 only) that
+// zeroes the rest of the 16 bytes at dst: n = 0 writes zeros and reads
+// nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+// ---- Hopper's warpgroup MMA (wgmma, sm_90a): D (64 x 256, f32 or s32; 128
+// registers a thread) = A (64 x 16 bf16/fp16, or 64 x 32 int8) * B^T (256
+// x the same), both operands read from shared memory through descriptors,
+// asynchronously. A warpgroup is 4 consecutive warps; warp w of it holds
+// rows 16 w .. 16 w + 15 of D in mma.sync's C layout, n-tile j of 8
+// columns in d[4 j .. 4 j + 3]: d[4 j + e] is row 16 w + g + 8 (e >> 1),
+// column 8 j + 2 t + (e & 1). scale_d = 0 starts D at A * B^T.
+
+__device__ __forceinline__ void wgmma_m64n256_bf16(float* d, uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n256_f16(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n256_s8(int* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The executing thread's shared-memory writes (generic proxy: cp.async,
+// st.shared) made visible to wgmma's reads (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator register across a
+// wgmma_wait (the asm of the product names its registers, the wait not).
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// The descriptor of a K-major operand in the 128-byte swizzle: rows of 128
+// bytes, 16-byte chunk c of row r stored at chunk c ^ (r % 8), 8-row atoms
+// of 1,024 bytes one after another (the stride), the atoms 1,024-byte
+// aligned. A k-step of 32 bytes within the row adds 2 (32 >> 4) to it.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// ---- one bin of the wide tensor-core scan: K1 at d > 128
+// (binned_scan_wide_tc_kernel, scan_wide.cu) and T3 past
+// SHIFTED_TC_MAX_WIDTH (shifted_scan_wide_tc_kernel, shifted_scan.cu).
+// tc_scan_bin holds a warp's query fragments in registers for the whole
+// bin: 2 * NT * KS <= 32 registers, so no warp is left at KS = 60 (d =
+// 960). Here both operands are staged in shared memory and each bin runs
+// as a GEMM main loop over the row's bytes on wgmma: a block of two
+// warpgroups owns kWtQueries queries and walks its bin kWtRows rows at a
+// time (warpgroup h the rows 64 h .. 64 h + 63 of each row block); for
+// each row block the rows and the queries come kWtBytes bytes (64
+// bf16/fp16 or 128 int8 columns) at a time through a kWtStages-deep
+// cp.async ring, in the 128-byte swizzle that wgmma reads, and only after
+// the row block's last stage do the accumulators go through the
+// selection.
+constexpr int kWtThreads = 256;   // two warpgroups
+constexpr int kWtRows = 128;      // corpus rows a block step (BM)
+constexpr int kWtQueries = 256;   // the block's query tile (BN)
+constexpr int kWtBytes = 128;     // bytes of every row a pipeline stage
+constexpr int kWtStages = 4;
+constexpr int kWtStageBytes = (kWtRows + kWtQueries) * kWtBytes;
+// the ring, one f32 a query of the tile (alpha or qshift), and room to
+// align the ring to 1,024 bytes (the swizzle's atom)
+constexpr int kWtSmem = kWtStages * kWtStageBytes + kWtQueries * 4 + 1024;
+
+// Blocks of a wide tensor-core scan: n_bins * q_tiles.
+inline int wt_query_tiles(int B) {
+  return (B + kWtQueries - 1) / kWtQueries;
+}
+
+// A query's running winner of SEL (kSelMin as one 64-bit key: the flipped
+// score's bits, offset to unsigned order, above the row, so that the
+// unsigned min is the (value, lower row) min; the keys of kSelFlip and
+// kSelRaw as they are).
+template <int SEL>
+using wt_key_t =
+    typename std::conditional<SEL == kSelMin, unsigned long long, int>::type;
+
+template <int SEL>
+__device__ __forceinline__ wt_key_t<SEL> wt_key(float s, int mask, int row) {
+  if constexpr (SEL == kSelMin) {
+    s = __fadd_rn(s, 0.f);  // -0 -> +0: equal values, one key
+    const unsigned hi = (unsigned)flip_bits(__float_as_int(s)) ^ 0x80000000u;
+    return ((unsigned long long)hi << 32) | (unsigned)row;
+  } else {
+    return tc_key<SEL>(s, mask, row);
+  }
+}
+
+// One block of a wide tensor-core scan: bin blockIdx.x / q_tiles and
+// queries [kWtQueries * qt, +kWtQueries) of tile qt = blockIdx.x % q_tiles
+// (consecutive blocks share a bin, so its rows come from L2 once the first
+// block has read them). q (B, row_bytes) and x (n_pad, row_bytes) are rows
+// of KIND (bf16 or fp16: d * 2 bytes; int8: d bytes); row_bytes a
+// multiple of 16 (the copies' size). Columns past the row,
+// rows past the bin and queries past B are zero-filled by the copies
+// (cp_async_zfill), and zeros add nothing to a dot product; a k-step of 32
+// bytes that holds no byte of the row is skipped. A stage is read by the
+// products two iterations after its copies start, and refilled only once
+// the products that read it are done (wgmma_wait<1> each iteration).
+//
+// After a row block's last product a thread holds, for rows r = 16 w + g
+// and r + 8 of its warpgroup's 64 (w its warp in the warpgroup) and for
+// the queries 8 j + 2 t + {0, 1} of the 32 n-tiles j, the sums, and turns
+// each into a score,
+//   ADDVEC:  fma(qscale, acc, addvec[row])  (= addvec + qscale * dot in one
+//            rounding, as the plain version's add + scale * dots: qscale
+//            is 1, -1 or -2, so the product is exact); int8:
+//            addvec + float(acc) * alpha[q], each rounded (|acc| < 2^24
+//            for d < 1040, so the convert is exact at any width this
+//            takes, where kMagic's is exact only to |acc| <= 2^22);
+//   else:    the dot product (T3's augmented score);
+//   SHIFT:   + qshift[q],
+// keys it (SEL as in tc_scan_bin; kSelMin as wt_key's 64-bit key, of the
+// smaller of its two rows' scores, the lower row on a tie) and takes the
+// min of its two rows. A reduce-scatter of three xor-shuffle
+// steps over the 8 lane groups leaves group g the row block's min for
+// n-tiles j = g (mod 8), which it folds into its running keys. At the
+// bin's end the 8 warps leave their keys in shared memory and thread i
+// merges query i's 8 (min of keys, so ties go to the lower row) and
+// writes it. No score leaves the block.
+template <int KIND, int SEL, bool ADDVEC, int EPI>
+__device__ __forceinline__ void tc_scan_bin_wide(
+    unsigned char* smem_raw, const void* q_ptr, const void* x_ptr,
+    const float* addvec, const float* alpha, float* out_val, int* out_idx,
+    int B, int bin_size, int idx_bits, int q_tiles, int row_bytes,
+    float qscale) {
+  constexpr bool QUANT = KIND == kInt8;
+  constexpr bool SHIFT = EPI == kEpiShifted;
+  static_assert(!QUANT || (EPI == kEpiPrescaled && ADDVEC),
+                "int8 scores take their scale from alpha");
+  using Acc = typename std::conditional<QUANT, int, float>::type;
+  using Key = wt_key_t<SEL>;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int bin = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - bin * q_tiles) * kWtQueries;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg = tid >> 7;        // rows [64 wg, +64) of a row block
+  const int wq = (tid >> 5) & 3;  // rows [16 wq, +16) of those
+  const long long row0 = (long long)bin * bin_size;
+  const int mask = (1 << idx_bits) - 1;
+  const int n_k = (row_bytes + kWtBytes - 1) / kWtBytes;  // stages a block
+  const int n_it = n_k * ((bin_size + kWtRows - 1) / kWtRows);
+  float* qs = reinterpret_cast<float*>(smem + kWtStages * kWtStageBytes);
+  if constexpr (QUANT || SHIFT) {  // read after the loop's first barrier
+    for (int i = tid; i < kWtQueries; i += kWtThreads)
+      qs[i] = q0 + i < B ? alpha[q0 + i] : 0.f;
+  }
+
+  // stage `it`: bytes [kb, kb + kWtBytes) of row block rb's rows, then of
+  // the tile's queries, 384 rows of 128 bytes in the 128-byte swizzle. A
+  // thread copies piece tid % kPieces of rows tid / kPieces + k * kPass,
+  // k = 0, 1, ...: kPass is a multiple of 8, so its swizzled offset in
+  // the row is one
+  constexpr int kPieces = kWtBytes / 16;
+  constexpr int kPass = kWtThreads / kPieces;
+  const int pr = tid / kPieces;
+  const int pb = (tid % kPieces) * 16;
+  const int swz = ((pb >> 4) ^ (pr & 7)) << 4;
+  auto stage = [&](int it) {
+    const int rb = it / n_k;
+    const int byte = (it - rb * n_k) * kWtBytes + pb;
+    const int r0 = rb * kWtRows;
+    const uint32_t dst = smem_addr(smem + (it % kWtStages) * kWtStageBytes) +
+                         pr * kWtBytes + swz;
+    const bool in_row = byte < row_bytes;
+#pragma unroll
+    for (int k = 0; k < (kWtRows + kWtQueries) / kPass; ++k) {
+      const int r = pr + k * kPass;
+      const unsigned char* src;
+      bool live;
+      if (k < kWtRows / kPass) {  // a corpus row
+        live = in_row && r0 + r < bin_size;
+        src = static_cast<const unsigned char*>(x_ptr) +
+              (row0 + r0 + r) * (long long)row_bytes + byte;
+      } else {  // a query
+        const int qi = q0 + r - kWtRows;
+        live = in_row && qi < B;
+        src = static_cast<const unsigned char*>(q_ptr) +
+              (long long)qi * row_bytes + byte;
+      }
+      cp_async_zfill(dst + k * kPass * kWtBytes, live ? src : x_ptr,
+                     live ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  Acc acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  Key run[4][2];  // n-tiles 8 a + g, queries 2 t + jj of each
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      if constexpr (SEL == kSelMin)
+        run[a][jj] = ~0ull;
+      else
+        run[a][jj] = kIntMax;
+    }
+
+  stage(0);
+  if (n_it > 1)
+    stage(1);
+  else
+    cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();  // stage it landed for every thread
+    if (it + 2 < n_it)
+      stage(it + 2);  // its buffer's products finished (wgmma_wait<1>)
+    else
+      cp_async_commit();  // an empty group keeps the wait counts
+    const int rb = it / n_k;
+    const int kb = (it - rb * n_k) * kWtBytes;
+    const uint32_t base = smem_addr(smem + (it % kWtStages) * kWtStageBytes);
+    const uint64_t da = wgmma_desc_sw128(base + wg * 64 * kWtBytes);
+    const uint64_t db = wgmma_desc_sw128(base + kWtRows * kWtBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWtBytes / 32; ++ks) {
+      if (kb + 32 * ks < row_bytes) {
+        const int acc_in = (kb > 0 || ks > 0) ? 1 : 0;
+        if constexpr (QUANT)
+          wgmma_m64n256_s8(acc, da + 2 * ks, db + 2 * ks, acc_in);
+        else if constexpr (KIND == kF16)
+          wgmma_m64n256_f16(acc, da + 2 * ks, db + 2 * ks, acc_in);
+        else
+          wgmma_m64n256_bf16(acc, da + 2 * ks, db + 2 * ks, acc_in);
+      }
+    }
+    wgmma_commit();
+    if (kb + kWtBytes < row_bytes) {  // the row block goes on
+      wgmma_wait<1>();
+      continue;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+
+    const int rs = rb * kWtRows + wg * 64 + wq * 16;  // the warp's rows
+    if (rs >= bin_size) continue;  // rows past the bin: no score
+    const int r_lo = rs + g;
+    float a_lo = 0.f, a_hi = 0.f;
+    if constexpr (ADDVEC) {
+      a_lo = __ldg(addvec + row0 + r_lo);
+      a_hi = __ldg(addvec + row0 + r_lo + 8);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {  // n-tiles j = 8 a + c
+      Key k[8][2];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 8 * a + c;
+          const float al = (QUANT || SHIFT) ? qs[8 * j + 2 * t + jj] : 0.f;
+          float s[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows r_lo and r_lo + 8
+            const Acc x = acc[4 * j + 2 * h + jj];
+            const float add = h ? a_hi : a_lo;
+            if constexpr (QUANT)  // mul then add, each rounded: no FMA
+              s[h] = __fadd_rn(add, __fmul_rn(__int2float_rn(x), al));
+            else if constexpr (ADDVEC)
+              s[h] = __fmaf_rn(qscale, x, add);
+            else
+              s[h] = x;
+            if constexpr (SHIFT) s[h] = __fadd_rn(s[h], al);
+          }
+          if constexpr (SEL == kSelMin) {  // row r_lo wins a tie
+            const bool hi = s[1] < s[0];
+            k[c][jj] =
+                wt_key<SEL>(hi ? s[1] : s[0], mask, r_lo + (hi ? 8 : 0));
+          } else {
+            k[c][jj] = min(wt_key<SEL>(s[0], mask, r_lo),
+                           wt_key<SEL>(s[1], mask, r_lo + 8));
+          }
+        }
+      // reduce-scatter over the lane groups: at step s the groups with bit
+      // s keep tiles c + s, the others c, and each takes the partner's
+      // min for the tile it keeps; group g ends with tile c = g
+#pragma unroll
+      for (int step = 4; step >= 1; step >>= 1) {
+        const bool up = (g & step) != 0;
+#pragma unroll
+        for (int c = 0; c < step; ++c)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const Key send = up ? k[c][jj] : k[c + step][jj];
+            const Key keep = up ? k[c + step][jj] : k[c][jj];
+            k[c][jj] = min(keep, __shfl_xor_sync(0xFFFFFFFFu, send, 4 * step));
+          }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) run[a][jj] = min(run[a][jj], k[0][jj]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' keys meet there
+
+  Key* part = reinterpret_cast<Key*>(smem);  // [8 warps][kWtQueries]
+  const int w = tid >> 5;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      part[w * kWtQueries + 64 * a + 8 * g + 2 * t + jj] = run[a][jj];
+  __syncthreads();
+  for (int i = tid; i < kWtQueries; i += kWtThreads) {
+    const int qi = q0 + i;
+    if (qi >= B) continue;
+    Key m = part[i];
+    for (int p = 1; p < 8; ++p) m = min(m, part[p * kWtQueries + i]);
+    const long long o = (long long)bin * B + qi;
+    if constexpr (SEL == kSelMin) {
+      out_val[o] = __int_as_float(
+          flip_bits((int)((unsigned)(m >> 32) ^ 0x80000000u)));
+      out_idx[o] = (int)(row0 + (int)(unsigned)m);
+    } else {
+      out_val[o] = tc_key_value<SEL>(m, mask);
+      out_idx[o] = (int)(row0 + (m & mask));
+    }
+  }
 }
 
 }  // namespace gbnns

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) kernel of the cluster-gated scan, behind a plain C
 // interface that gbnns_tpu_torch/kernels/scan_topk.py binds with ctypes.
 // The file includes no PyTorch or CUTLASS header (only common.cuh beside
-// it), so one nvcc call builds it in seconds:
+// it), so nvcc builds it in seconds, beside gated_wide.cu (T4 at d > 128),
+// and links the two:
 //
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libgated_topm.so gated_topm.cu
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \
+//        -fPIC -c gated_topm.cu           (and gated_wide.cu, in parallel)
+//   nvcc -shared -o libgated_topm.so gated_topm.o gated_wide.o
 //
 // The launcher takes the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -71,12 +73,35 @@
 //     each finished fine bin by compare-and-swap (skipped unless it beats
 //     the list's last key). The products are fp32 FMAs (exact products of
 //     bf16 or fp16 inputs). Blocks of one chunk are consecutive (queries
-//     on grid x), so a chunk is read from device memory about once.
+//     on grid x), so a chunk is read from device memory about once. Any d
+//     above 128 that is a multiple of 16 (GIST's 960) takes
+//     gated_topm_wide_kernel (gated_wide.cu, compiled beside this file
+//     and linked into the same library): the query no longer fits in
+//     registers, so a
+//     step stages 32 rows 64 columns at a time, the thread reads its query
+//     16 columns at a time and keeps the 32 row sums in registers across
+//     the slabs (the layout of K1's binned_scan_wide_kernel); then the
+//     32 rows pass the same two levels in order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace gbnns {
+
+// T4 on the CUDA cores at any d > 128 that is a multiple of 16, from
+// gated_wide.cu (compiled apart, in parallel: kernels/_build.py PARTS);
+// the arguments are gated_topm_kernel's, with the kind and m to dispatch
+// on.
+cudaError_t launch_gated_wide(const void* q, const void* x,
+                              const float* addvec, const int* tile_mask,
+                              float* out_val, int* out_idx, int B, int d,
+                              int n_chunks, int chunk, int tq, int b_tiles,
+                              int m, int fine_bits, int sub_bits, int km,
+                              int kind, cudaStream_t stream);
+
+}  // namespace gbnns
 
 namespace {
 
@@ -514,7 +539,8 @@ int gbnns_gated_warp_queries(int d) {
 // q (B, d) and x (n_pad, d) of one kind: 0 bf16, 2 f32, 3 fp16 (x
 // prescaled); addvec (n_pad,) f32; tile_mask (n_chunks * B / tq,) int32;
 // out_val f32 / out_idx int32, both (m * n_chunks, B). d in {16, 32, 64,
-// 128}; fine, sub, m powers of two, fine <= sub, chunk % sub == 0,
+// 128} or, on the CUDA cores only, any larger multiple of 16; fine, sub, m
+// powers of two, fine <= sub, chunk % sub == 0,
 // n_pad % chunk == 0, B % tq == 0, m <= min(32, chunk / fine). Pointers
 // 16-byte aligned. tensor_cores (scan_topk.gated_cores) selects
 // gated_topm_tc_kernel: bf16 or fp16, fine % 16 == 0 and tq a multiple of
@@ -552,7 +578,13 @@ int gbnns_gated_topm(const void* q, const void* x, const float* addvec,
     case 32: GBNNS_WIDTH(32);
     case 64: GBNNS_WIDTH(64);
     case 128: GBNNS_WIDTH(128);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (tensor_cores || d <= 128 || d % 16 != 0)
+        return cudaErrorInvalidValue;
+      return gbnns::launch_gated_wide(q, x, addvec, tile_mask, out_val,
+                                      out_idx, B, d, n_chunks, chunk, tq,
+                                      b_tiles, m, fine_bits, sub_bits, km,
+                                      kind, s);
   }
 #undef GBNNS_WIDTH
 #undef GBNNS_LAUNCH

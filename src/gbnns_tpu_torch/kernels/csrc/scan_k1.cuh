@@ -1,10 +1,12 @@
 // K1 binned_scan (T1, scan_topk_pallas.py _scan_kernel): its kernels and
 // launcher, described in scan_topk.cu. Two translation units include this
-// header and nvcc compiles them in parallel into one library
-// (kernels/_build.py): scan_topk.cu, which holds the C interface and the
-// prescaled and int8 kernels (kEpiPrescaled), and scan_epilogue.cu, which
-// holds T1's unprescaled and shifted epilogues (kEpiScaled, kEpiShifted)
-// behind gbnns::launch_binned_scan_epilogue. Plain CUDA: no PyTorch header.
+// header and nvcc compiles them in parallel, with scan_wide.cu, into one
+// library (kernels/_build.py): scan_topk.cu, which holds the C interface
+// and the prescaled and int8 kernels (kEpiPrescaled), and
+// scan_epilogue.cu, which holds T1's unprescaled and shifted epilogues
+// (kEpiScaled, kEpiShifted) behind gbnns::launch_binned_scan_epilogue; the
+// tensor-core kernels at d > 128 are scan_wide.cu's, behind
+// gbnns::launch_binned_scan_wide. Plain CUDA: no PyTorch header.
 
 #pragma once
 
@@ -24,6 +26,14 @@ cudaError_t launch_binned_scan_epilogue(
     const float* qs, float* out_val, int* out_idx, int B, int d, int n_bins,
     int bin_size, int idx_bits, int kind, bool packed, bool tensor_cores,
     float qscale, cudaStream_t s);
+
+// K1 on the tensor cores at d > 128 (a multiple of 16), any epilogue, from
+// scan_wide.cu; the arguments are launch_binned_scan's.
+cudaError_t launch_binned_scan_wide(
+    int epi, const void* q, const void* x, const float* addvec,
+    const float* qs, float* out_val, int* out_idx, int B, int d, int n_bins,
+    int bin_size, int idx_bits, int kind, bool packed, float qscale,
+    cudaStream_t s);
 
 }  // namespace gbnns
 
@@ -236,7 +246,8 @@ binned_scan_kernel(const void* __restrict__ q_ptr,
   }
 }
 
-// Any d that is a multiple of 16 (used for d > 128): one query per thread.
+// Any d that is a multiple of 16 (used for d > 128: f32, bins off the row
+// tile, and the other kinds when cores="cuda" asks): one query per thread.
 // A step stages kWideRows corpus rows kWideCols columns at a time; each
 // thread reads its query 16 columns at a time into registers and keeps the
 // kWideRows running row sums in registers across the slabs, so no score
@@ -550,7 +561,10 @@ cudaError_t launch_binned_scan(const void* q, const void* x,
       case 32: return GBNNS_LAUNCH_TC(32);
       case 64: return GBNNS_LAUNCH_TC(64);
       case 128: return GBNNS_LAUNCH_TC(128);
-      default: return cudaErrorInvalidValue;
+      default:
+        return gbnns::launch_binned_scan_wide(
+            EPI, q, x, addvec, qs, out_val, out_idx, B, d, n_bins, bin_size,
+            idx_bits, kind, packed, qscale, s);
     }
 #undef GBNNS_LAUNCH_TC
   }

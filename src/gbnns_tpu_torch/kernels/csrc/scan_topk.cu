@@ -1,13 +1,15 @@
 // Hopper (sm_90a) kernels of the fused-scan serving path, behind a plain C
 // interface that gbnns_tpu_torch/kernels/scan_topk.py binds with ctypes.
 // K1's kernels are in scan_k1.cuh; this file instantiates its prescaled and
-// int8 ones and scan_epilogue.cu the unprescaled and shifted ones, two
-// translation units that nvcc compiles at once and links into one library
+// int8 ones, scan_epilogue.cu the unprescaled and shifted ones and
+// scan_wide.cu the tensor-core ones at d > 128, three translation units
+// that nvcc compiles at once and links into one library
 // (kernels/_build.py). No PyTorch or CUTLASS header:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \
-//        -fPIC -c scan_topk.cu       (and scan_epilogue.cu, in parallel)
-//   nvcc -shared -o libscan_topk.so scan_topk.o scan_epilogue.o
+//        -fPIC -c scan_topk.cu   (and scan_epilogue.cu, scan_wide.cu, in
+//                                 parallel)
+//   nvcc -shared -o libscan_topk.so scan_topk.o scan_epilogue.o scan_wide.o
 //
 // Every launcher takes the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -35,7 +37,10 @@
 //   corpus, 128 MB of winners), so it is bound by operations. Two routes,
 //   chosen by the caller (scan_topk.scan_cores) and passed in:
 //   * Tensor cores (binned_scan_tc_kernel): bf16, fp16 and int8 at d in
-//     {16, 32, 64, 128}, bins a multiple of 16 rows. mma.sync m16n8k16
+//     {16, 32, 64, 128}, bins a multiple of 16 rows; at any larger d (a
+//     multiple of 16) binned_scan_wide_tc_kernel (scan_wide.cu), the same
+//     products and selection with both operands staged in shared memory
+//     (common.cuh's tc_scan_bin_wide). mma.sync m16n8k16
 //     (bf16/fp16 -> f32: exact products, f32 sums in the tensor core's
 //     order) or m16n8k32 (s8 -> s32, exact). A = 16 corpus rows (ldmatrix
 //     from shared memory, rows padded to an odd multiple of 16 bytes so the
@@ -60,8 +65,9 @@
 //     SMs; the L2 order gets the same reuse with small blocks.
 //   * CUDA cores (binned_scan_kernel, binned_scan_wide_kernel): f32 (no
 //     TF32, which would change the result; bound 2*B*n*d at the 67 TFLOP/s
-//     fp32 rate), every kind at d > 128, and bins that are not a multiple
-//     of 16 rows. A block owns one bin and 128*QPT queries; each thread
+//     fp32 rate), bins that are not a multiple of 16 rows, and any shape
+//     asked for with cores="cuda" (how chip_smoke.py times the route the
+//     tensor cores replaced). A block owns one bin and 128*QPT queries; each thread
 //     keeps QPT queries in registers and a running (min, argmin) per query,
 //     corpus rows are staged in 16 KB of shared memory (bf16 and fp16
 //     widened to f32 exactly) and read as warp-wide broadcasts: fp32 FMAs,
@@ -358,8 +364,9 @@ const char* gbnns_error_string(int err) {
 // d in {16, 32, 64, 128} or any larger multiple of 16; n_pad % bin_size ==
 // 0; PACKED needs a power-of-two bin_size. Pointers 16-byte aligned.
 // tensor_cores = 1 takes binned_scan_tc_kernel (bf16, fp16, int8; d in
-// {16, 32, 64, 128}; bin_size a multiple of 16; anything else is refused),
-// 0 the CUDA-core kernels. The caller chooses (scan_topk.scan_cores).
+// {16, 32, 64, 128}) or binned_scan_wide_tc_kernel (any larger d), bin_size
+// a multiple of 16 (anything else is refused), 0 the CUDA-core kernels.
+// The caller chooses (scan_topk.scan_cores).
 int gbnns_binned_scan(const void* q, const void* x, const float* addvec,
                       const float* alpha, const float* qshift,
                       float* out_val, int* out_idx, int B, int n_pad, int d,

@@ -64,8 +64,8 @@ def demangle(names: list[str]) -> list[str]:
 
 def split_functions(text: str) -> dict[str, str]:
     """``cuobjdump -sass`` (or ``-res-usage``) output → {mangled name: its
-    instructions (or its resource line)}; headers between the fatbins of a
-    library of several sources are left out."""
+    instructions (or its resource line)}, runs of spaces collapsed; headers
+    between the fatbins of a library of several sources are left out."""
     blocks: dict[str, list[str]] = {}
     current = None
     for line in text.splitlines():
@@ -75,7 +75,9 @@ def split_functions(text: str) -> dict[str, str]:
             blocks[current] = []
         elif current is not None and (line.strip().startswith("/*")
                                       or "REG:" in line):
-            blocks[current].append(line.strip())
+            # cuobjdump pads its columns to the widest instruction of the
+            # library, so a new kernel can move every line's spacing
+            blocks[current].append(" ".join(line.split()))
     return {k: "\n".join(v) for k, v in blocks.items()}
 
 

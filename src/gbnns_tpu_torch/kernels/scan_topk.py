@@ -59,10 +59,10 @@ from gbnns_tpu_torch.kernels import _build
 from gbnns_tpu_torch.kernels.distance import exact_fp32
 from gbnns_tpu_torch.search.rerank import rerank
 
-# Feature widths the register-resident scan kernel is built for; a wider
-# reduced dimension takes the wide kernel at any multiple of 16.
-# FusedScanIndex pads the reduced dimension with zero columns (exact: zeros
-# add nothing to a dot product).
+# Feature widths the register-resident scan kernels are built for; a wider
+# reduced dimension takes the wide kernels at any multiple of 16, and any
+# other width is padded with zero columns to ``scan_width`` (exact: zeros
+# add nothing to a dot product). The indexes store padded corpora.
 SCAN_WIDTHS = (16, 32, 64, 128)
 # The scan's element type -> the ``kind`` of the C interface.
 _KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2,
@@ -84,7 +84,8 @@ def reset_launches() -> None:
 
 # The tensor-core scans run 16 corpus rows a product (mma.sync's M), so a
 # bin must be a multiple of that; T3's tensor-core kernel holds its query
-# fragments in registers up to this augmented width.
+# fragments in registers up to this augmented width, and stages them in
+# shared memory past it (as K1 does past SCAN_WIDTHS).
 TC_ROW_TILE = 16
 SHIFTED_TC_MAX_WIDTH = 264
 _TC_KINDS = (torch.bfloat16, torch.float16, torch.int8)
@@ -97,21 +98,22 @@ def _as_dtype(kind) -> torch.dtype:
 def scan_cores(kind, d: int, bin_size: int) -> str:
     """Which K1 kernel a scan of element type ``kind`` (a torch dtype or its
     name) at width ``d`` and ``bin_size`` launches: "tensor" (bf16, fp16 and
-    int8 at d in ``SCAN_WIDTHS``, bins a multiple of ``TC_ROW_TILE``) or
-    "cuda" (f32, whose tensor-core form TF32 would change the result; wider
-    d; other bins)."""
-    if (_as_dtype(kind) in _TC_KINDS and d in SCAN_WIDTHS
-            and bin_size % TC_ROW_TILE == 0):
+    int8 at any d, bins a multiple of ``TC_ROW_TILE``: the query fragments
+    in registers at ``scan_width(d)`` in ``SCAN_WIDTHS``, both operands
+    staged in shared memory past it) or "cuda" (f32, whose tensor-core form
+    TF32 would change the result; other bins)."""
+    if _as_dtype(kind) in _TC_KINDS and bin_size % TC_ROW_TILE == 0:
         return "tensor"
     return "cuda"
 
 
 def shifted_cores(kind, d_aug: int, bin_size: int = 1024) -> str:
-    """Which T3 kernel a shifted scan launches: "tensor" (bf16 and fp16, any
-    d_aug that is a multiple of 4 up to ``SHIFTED_TC_MAX_WIDTH``, bins a
-    multiple of ``TC_ROW_TILE``) or "cuda" (f32, and the rest)."""
-    if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
-            and d_aug % 4 == 0 and 0 < d_aug <= SHIFTED_TC_MAX_WIDTH
+    """Which T3 kernel a shifted scan launches: "tensor" (bf16 and fp16 at
+    any d_aug, padded to ``shifted_width(d_aug)``: the query fragments in
+    registers up to ``SHIFTED_TC_MAX_WIDTH``, in shared memory past it;
+    bins a multiple of ``TC_ROW_TILE``) or "cuda" (f32, and bins under the
+    row tile)."""
+    if (_as_dtype(kind) in (torch.bfloat16, torch.float16) and d_aug > 0
             and bin_size % TC_ROW_TILE == 0):
         return "tensor"
     return "cuda"
@@ -132,8 +134,10 @@ def gated_cores(kind, d: int, *, fine: int, tq: int) -> str:
     in ``SCAN_WIDTHS``, ``fine`` a multiple of ``TC_ROW_TILE`` and ``tq`` a
     multiple of a warp's queries, ``tc_warp_queries``, so that no warp
     straddles two mask tiles) or "cuda" (f32, whose tensor-core form TF32
-    would change the result; fine 4 and 8; a tq that splits a warp).
-    ``sub`` does not enter: any sub serves both."""
+    would change the result; fine 4 and 8; a tq that splits a warp; d off
+    ``SCAN_WIDTHS``: past 128 the wide CUDA-core kernel). ``d`` is the
+    width the kernel receives (``gated_topm_scan`` asks at
+    ``scan_width(d)``). ``sub`` does not enter: any sub serves both."""
     if (_as_dtype(kind) in (torch.bfloat16, torch.float16)
             and d in SCAN_WIDTHS and fine % TC_ROW_TILE == 0
             and tq % tc_warp_queries(d) == 0):
@@ -154,8 +158,11 @@ def scan_width(d: int) -> int:
     return _round_up(d, 16)
 
 
-def _kernel_width(d: int) -> bool:
-    return d in SCAN_WIDTHS or (d > SCAN_WIDTHS[-1] and d % 16 == 0)
+def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (rows, d) with zero columns up to ``width`` (a copy; ``t``
+    itself when d is width already)."""
+    d = t.shape[1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
 
 
 def _flip(bits: torch.Tensor) -> torch.Tensor:
@@ -319,12 +326,17 @@ def binned_scan(q, x, addvec, qshift=None, *, metric: str = "l2",
     (ties to the lower row). ``chunk`` sets nothing but the check; ``tq``
     and ``interpret`` are accepted and change nothing.
 
-    d is one of ``SCAN_WIDTHS`` or a larger multiple of 16. CPU tensors take
-    ``binned_scan_plain``; CUDA tensors launch K1 on the cores
+    Any d: the kernels take ``SCAN_WIDTHS`` and larger multiples of 16,
+    and on the card any other d is padded with zero columns to
+    ``scan_width(d)`` (exact), which copies q and x once a call, (B + n_pad)
+    * (scan_width(d) - d) * itemsize bytes of zeros and the data beside
+    them (the port's indexes store padded corpora and never pay it). CPU
+    tensors take ``binned_scan_plain``; CUDA tensors launch K1 on the cores
     ``scan_cores`` names, or on ``cores`` ("cuda" takes every shape,
     "tensor" only those ``scan_cores`` gives it) to compare the routes.
     In fp16 an unprescaled query must stay below 32,768 in magnitude on
-    the card: the kernel carries the l2 factor -2 on it.
+    the card: the d <= 128 tensor-core kernel carries the l2 factor -2 on
+    it.
     """
     route = _route(cores, scan_cores(x.dtype, q.shape[1], bin_size),
                    "binned_scan")
@@ -337,11 +349,10 @@ def binned_scan(q, x, addvec, qshift=None, *, metric: str = "l2",
                      packed=packed, quant=quant)
     if x.device.type != "cuda":
         raise ValueError(f"binned_scan runs on cuda or cpu, not {x.device}")
-    B, d = q.shape
-    if not _kernel_width(d):
-        raise ValueError(f"the scan kernel takes d in {SCAN_WIDTHS} or a "
-                         f"larger multiple of 16, got {d}")
-    q, x = _build.aligned(q.to(x.dtype)), _build.aligned(x)
+    B = q.shape[0]
+    d = scan_width(q.shape[1])
+    q, x = _pad_columns(q.to(x.dtype), d), _pad_columns(x, d)
+    q, x = _build.aligned(q), _build.aligned(x)
     addvec = _build.aligned(addvec.float())
     qs = None if qshift is None else _build.aligned(qshift.float())
     alpha, shift = (qs, None) if quant else (None, qs)
@@ -431,13 +442,18 @@ def augment_queries(q: torch.Tensor, metric: str,
     return torch.cat([q, cq[:, None]], 1)
 
 
-# The shifted kernels' element kinds, and the widths of the CUDA-core
-# kernel: a reduced width of SCAN_WIDTHS plus the four augmented columns
-# (an ip corpus, one column wider than its data, pads three zero columns to
-# the same width). The tensor-core kernel takes any multiple of 4 up to
-# SHIFTED_TC_MAX_WIDTH.
+# The shifted kernels' element kinds.
 _SHIFTED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-SHIFTED_WIDTHS = tuple(w + 4 for w in SCAN_WIDTHS)
+
+
+def shifted_width(d_aug: int) -> int:
+    """The width T3 runs ``d_aug`` augmented columns at on the card: a
+    multiple of 4, which every kernel takes, and of 8 past
+    ``SHIFTED_TC_MAX_WIDTH``, so that a 16-bit row is a multiple of 16
+    bytes (the shared-memory kernel's copies). ``shifted_scan`` pads to it
+    with zero columns; ``FusedScanIndex(mode="shifted")`` stores it."""
+    w = _round_up(d_aug, 4)
+    return _round_up(w, 8) if w > SHIFTED_TC_MAX_WIDTH else w
 
 
 def _route(cores, default: str, what: str) -> str:
@@ -450,22 +466,6 @@ def _route(cores, default: str, what: str) -> str:
     if cores == "tensor" and default != "tensor":
         raise ValueError(f"{what} has no tensor-core kernel for this kind "
                          f"and shape")
-    return cores
-
-
-def check_shifted_width(kind, d_aug: int, bin_size: int = 1024,
-                        cores: str | None = None) -> str:
-    """The T3 route for ``kind`` at ``d_aug``: ``cores``, or
-    ``shifted_cores``'s when None; raises ValueError for a width that
-    route's kernel does not take."""
-    cores = _route(cores, shifted_cores(kind, d_aug, bin_size),
-                   "shifted_scan")
-    if cores == "cuda" and d_aug not in SHIFTED_WIDTHS:
-        raise ValueError(
-            f"the shifted kernel takes d_aug in {SHIFTED_WIDTHS} on the "
-            f"CUDA cores (f32, or bins under {TC_ROW_TILE} rows) and a "
-            f"multiple of 4 up to {SHIFTED_TC_MAX_WIDTH} on the tensor "
-            f"cores, got {d_aug} for {kind}")
     return cores
 
 
@@ -537,7 +537,10 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024,
     ``augment_corpus``, n_pad a multiple of the power-of-two ``bin_size``.
     CPU tensors take ``shifted_scan_plain``; CUDA tensors launch T3 on the
     cores ``shifted_cores`` names, or on ``cores`` as ``binned_scan`` takes
-    it (widths: ``check_shifted_width``)."""
+    it, at any d_aug: one off ``shifted_width(d_aug)`` is padded with zero
+    columns to it (exact; a copy of both operands a call, as
+    ``binned_scan`` pads, which the shifted index, storing that width,
+    never pays)."""
     route = _route(cores, shifted_cores(x_aug.dtype, q_aug.shape[1],
                                         bin_size), "shifted_scan")
     if x_aug.device.type == "cpu":
@@ -546,9 +549,10 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024,
     if x_aug.device.type != "cuda":
         raise ValueError(f"shifted_scan runs on cuda or cpu, not "
                          f"{x_aug.device}")
-    B, d_aug = q_aug.shape
-    cores = check_shifted_width(x_aug.dtype, d_aug, bin_size, route)
-    q, x = _build.aligned(q_aug.to(x_aug.dtype)), _build.aligned(x_aug)
+    B = q_aug.shape[0]
+    d_aug = shifted_width(q_aug.shape[1])
+    q = _pad_columns(q_aug.to(x_aug.dtype), d_aug)
+    q, x = _build.aligned(q), _build.aligned(_pad_columns(x_aug, d_aug))
     n_bins = x.shape[0] // bin_size
     vals = torch.empty((n_bins, B), dtype=torch.float32, device=x.device)
     ids = torch.empty((n_bins, B), dtype=torch.int32, device=x.device)
@@ -558,10 +562,10 @@ def shifted_scan(q_aug, x_aug, *, bin_size: int = 1024,
         err = lib.gbnns_shifted_scan(
             q.data_ptr(), x.data_ptr(), vals.data_ptr(), ids.data_ptr(), B,
             x.shape[0], d_aug, bin_size, _KINDS[x.dtype],
-            int(cores == "tensor"), stream)
+            int(route == "tensor"), stream)
     _build.check(lib, err, "shifted_scan")
     launches.count("shifted_scan")
-    launches_by_cores.count(f"shifted_scan:{cores}")
+    launches_by_cores.count(f"shifted_scan:{route}")
     return vals.T, ids.T
 
 
@@ -681,10 +685,14 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
     ``j * b_tiles + i`` gating corpus chunk j against query tile i. Values
     come back quantized to 2^(log2 max(sub, chunk/fine) - 23) relative.
     CPU tensors take ``gated_topm_scan_plain``; CUDA tensors launch T4
-    (d in ``SCAN_WIDTHS``, m <= ``GATED_MAX_M``) on the cores
-    ``gated_cores`` names, or on ``cores`` as ``binned_scan`` takes it."""
-    route = _route(cores, gated_cores(x.dtype, q.shape[1], fine=fine,
-                                      tq=tq), "gated_topm_scan")
+    (m <= ``GATED_MAX_M``) on the cores ``gated_cores`` names, or on
+    ``cores`` as ``binned_scan`` takes it, at any d: one off
+    ``SCAN_WIDTHS`` and past 128 not a multiple of 16 is padded with zero
+    columns to ``scan_width(d)`` (exact; a copy of q and x a call, which
+    ``GatedScanIndex``, storing a padded corpus, never pays)."""
+    d = scan_width(q.shape[1])   # the width the kernel receives
+    route = _route(cores, gated_cores(x.dtype, d, fine=fine, tq=tq),
+                   "gated_topm_scan")
     if x.device.type == "cpu":
         return gated_topm_scan_plain(q, x, addvec, tile_mask, metric=metric,
                                      fine=fine, m=m, sub=sub, chunk=chunk,
@@ -694,16 +702,15 @@ def gated_topm_scan(q, x, addvec, tile_mask, *, metric: str = "l2",
     if x.device.type != "cuda":
         raise ValueError(f"gated_topm_scan runs on cuda or cpu, not "
                          f"{x.device}")
-    B, d = q.shape
-    if d not in SCAN_WIDTHS:
-        raise ValueError(f"the gated kernel takes d in {SCAN_WIDTHS}, got {d}")
+    B = q.shape[0]
     if m > GATED_MAX_M:
         raise ValueError(f"the gated kernel keeps at most {GATED_MAX_M} "
                          f"winners a chunk, got m={m}")
     if n_chunks > 65535:
         raise ValueError(f"the gated kernel takes at most 65,535 chunks, "
                          f"got {n_chunks}")
-    q, x = _build.aligned(q.to(x.dtype)), _build.aligned(x)
+    q, x = _pad_columns(q.to(x.dtype), d), _pad_columns(x, d)
+    q, x = _build.aligned(q), _build.aligned(x)
     addvec = _build.aligned(addvec.float())
     tile_mask = _build.aligned(tile_mask.to(torch.int32))
     vals = torch.empty((n_chunks * m, B), dtype=torch.float32,
@@ -899,7 +906,8 @@ class FusedScanIndex:
             # zero columns up to the kernel's width add nothing to a dot
             # product or a norm
             aug = augment_corpus(lo_pad, n, metric)
-            aug = np.pad(aug, ((0, 0), (0, width + 4 - aug.shape[1])))
+            w_aug = shifted_width(width + 4)
+            aug = np.pad(aug, ((0, 0), (0, w_aug - aug.shape[1])))
             self.x_aug = (torch.from_numpy(aug).to(self.scan_dtype)
                           .to(self.device))
             self.max_norm = float(np.sqrt((lo ** 2).sum(-1).max()))
@@ -940,11 +948,11 @@ class FusedScanIndex:
     def shifted_queries(self, ql: torch.Tensor) -> torch.Tensor:
         """Augmented f32 queries of the shifted mode, at the corpus's
         width (the scan casts them to its type)."""
-        width = self.x_aug.shape[1] - 4
         if ql.shape[1] != self.d_lo:
             raise ValueError(f"queries have {ql.shape[1]} reduced dims, the "
                              f"index {self.d_lo}")
-        ql = torch.nn.functional.pad(ql, (0, width - self.d_lo))
+        ql = torch.nn.functional.pad(ql, (0, scan_width(self.d_lo)
+                                          - self.d_lo))
         q_aug = augment_queries(ql, self.metric, self.max_norm)
         return torch.nn.functional.pad(
             q_aug, (0, self.x_aug.shape[1] - q_aug.shape[1]))

@@ -32,8 +32,8 @@ import torch
 
 from gbnns_tpu_torch._device import resolve_device
 from gbnns_tpu_torch.kernels.distance import exact_fp32, squared_norms
-from gbnns_tpu_torch.kernels.scan_topk import (SCAN_WIDTHS, _round_up,
-                                               gated_topm_scan)
+from gbnns_tpu_torch.kernels.scan_topk import (_round_up, gated_topm_scan,
+                                               scan_width)
 from gbnns_tpu_torch.kernels.topk import smallest_k
 from gbnns_tpu_torch.search.rerank import rerank
 
@@ -168,7 +168,7 @@ class GatedScanIndex:
     exact full-dimension re-rank), with two recall knobs: ``c`` (the
     re-rank pool) and ``probes`` (neighbour clusters scanned, IVF
     semantics). The reduced width is padded with zero columns to a width
-    the kernel takes (``SCAN_WIDTHS``), which is exact. ``build_seconds``
+    the kernels take (``scan_width``), which is exact. ``build_seconds``
     splits the constructor's time into k-means, assignment, packing (on the
     host) and upload.
     """
@@ -278,7 +278,7 @@ class GatedScanIndex:
             return torch.from_numpy(np.array(a)).to(dev, dtype)
 
         x = np.asarray(x_lo, np.float32)
-        width = next((w for w in SCAN_WIDTHS if w >= x.shape[1]), x.shape[1])
+        width = scan_width(x.shape[1])
         if width != x.shape[1]:
             x = np.pad(x, ((0, 0), (0, width - x.shape[1])))
         self.perm = put(perm, torch.int32)          # kernel pos -> orig id

@@ -91,10 +91,12 @@ def test_no_kernel_source_includes_torch_headers():
 
 
 def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
-    """Three of the port's libraries, four sources (libscan_topk.so is
-    scan_topk.cu and scan_epilogue.cu): all four nvcc processes start before
+    """Three of the port's libraries, six sources (libscan_topk.so is
+    scan_topk.cu, scan_epilogue.cu and scan_wide.cu; libgated_topm.so is
+    gated_topm.cu and gated_wide.cu): all six nvcc processes start before
     the first is waited on, each compiles one source with the Hopper flags,
-    and the two objects of libscan_topk.so are linked once both are built."""
+    and each library of several parts is linked once its objects are
+    built."""
     events = []
 
     class FakeProc:
@@ -116,21 +118,26 @@ def test_each_real_source_gets_its_own_nvcc_process(tmp_path, monkeypatch):
     names = ["scan_topk", "gated_topm", "gather"]
     _build.build(names)
     kinds = [e[0] for e in events]
-    assert kinds[:4] == ["start"] * 4
-    compiles = [cmd for kind, cmd in events[:4]]
-    want = [_build.CSRC / "scan_topk.cu", _build.CSRC / "scan_epilogue.cu",
-            _build.CSRC / "gated_topm.cu", _build.CSRC / "gather.cu"]
+    assert kinds[:6] == ["start"] * 6
+    compiles = [cmd for kind, cmd in events[:6]]
+    want = [_build.CSRC / f"{n}.cu" for n in (
+        "scan_topk", "scan_epilogue", "scan_wide", "gated_topm", "gated_wide",
+        "gather")]
     assert [cmd[-1] for cmd in compiles] == [str(w) for w in want]
     for cmd in compiles:
         assert [c for c in cmd if c.endswith(".cu")] == [cmd[-1]]
         assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-c" in compiles[0] and "-c" in compiles[1]
-    links = [cmd for kind, cmd in events[4:] if kind == "start"]
-    assert len(links) == 1 and "-shared" in links[0]
-    assert [c for c in links[0] if c.endswith(".o")] == [
-        compiles[0][compiles[0].index("-o") + 1],
-        compiles[1][compiles[1].index("-o") + 1]]
-    assert kinds.count("wait") == 5
+    assert all("-c" in cmd for cmd in compiles[:5])
+    links = [cmd for kind, cmd in events[6:] if kind == "start"]
+    assert len(links) == 2 and all("-shared" in cmd for cmd in links)
+
+    def objs(cmds):
+        return [cmd[cmd.index("-o") + 1] for cmd in cmds]
+
+    # each library's link starts on its own thread, in either order
+    assert sorted([c for c in link if c.endswith(".o")] for link in links) \
+        == sorted([objs(compiles[:3]), objs(compiles[3:5])])
+    assert kinds.count("wait") == 8
     for name in names:
         assert _build.library_path(name).exists()
         assert not list(_build.library_path(name).parent.glob("*.o"))
@@ -178,7 +185,14 @@ def test_sass_compare_matches_old_and_new_kernel_names():
             "        /*0000*/  LDC R1, c[0x0][0x28] ;\n        ......\n\n"
             "Fatbin elf code:\n\t\tFunction : _Zb\n        /*0000*/  EXIT ;\n")
     assert sc.split_functions(sass) == {
-        "_Za": "/*0000*/  LDC R1, c[0x0][0x28] ;", "_Zb": "/*0000*/  EXIT ;"}
+        "_Za": "/*0000*/ LDC R1, c[0x0][0x28] ;", "_Zb": "/*0000*/ EXIT ;"}
+    # cuobjdump pads its columns to a library's widest instruction: the
+    # same instruction padded otherwise compares equal
+    padded = sass.replace("LDC R1, c[0x0][0x28] ;",
+                          "LDC R1, c[0x0][0x28] ;      /* 0x0a */")
+    assert sc.split_functions(padded)["_Za"] == sc.split_functions(
+        sass.replace("LDC R1, c[0x0][0x28] ;",
+                     "LDC R1, c[0x0][0x28] ; /* 0x0a */"))["_Za"]
     assert sc.split_functions(" Function _Za:\nREG:40 STACK:8 LOCAL:0\n") \
         == {"_Za": "REG:40 STACK:8 LOCAL:0"}
 
@@ -186,9 +200,12 @@ def test_sass_compare_matches_old_and_new_kernel_names():
 def test_libraries_and_their_sources(tmp_path):
     """A library's parts compile beside it; a tree without them builds the
     library from its one source."""
-    assert "scan_epilogue" not in _build.libraries()
+    assert not {"scan_epilogue", "scan_wide", "gated_wide"} & set(
+        _build.libraries())
     assert [p.name for p in _build.sources("scan_topk")] == [
-        "scan_topk.cu", "scan_epilogue.cu"]
+        "scan_topk.cu", "scan_epilogue.cu", "scan_wide.cu"]
+    assert [p.name for p in _build.sources("gated_topm")] == [
+        "gated_topm.cu", "gated_wide.cu"]
     (tmp_path / "scan_topk.cu").write_text("// old tree\n")
     assert _build.libraries(tmp_path) == ["scan_topk"]
     assert [p.name for p in _build.sources("scan_topk", tmp_path)] == [

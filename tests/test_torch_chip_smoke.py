@@ -34,7 +34,8 @@ def test_rehearsal_on_cpu(chip_smoke, capsys, tmp_path):
         pipeline_steps=40)
     out = capsys.readouterr().out
     assert "ground truth: 1024/1024 rows equal" in out
-    assert out.count("1.0000 of rows equal to a direct search") == 3
+    # fused bf16 and int8, graph_pallas, and the unreduced bf16 and int8
+    assert out.count("1.0000 of rows equal to a direct search") == 5
     assert "reachable from the walker's entries: 20000/20000" in out
     assert out.count("identical True") == 2
     for ef in (32, 48, 64):
@@ -95,6 +96,15 @@ def test_rehearsal_on_cpu(chip_smoke, capsys, tmp_path):
     assert "sharded scan index (8 shards on one card, 8 x 2500 rows)" in out
     for label in ("fused bfloat16", "fused int8", "graph_pallas"):
         assert f"sharded {label} ef=32 (8 shards on one card): R@1=" in out
+    # the unreduced path: the gist1m stand-in at 20,000 x 960, the fused
+    # engine served in bf16 and int8, gated at probes 16, shifted at 964
+    assert "gist1m stand-in (l2, io.datasets' recipe, seed 0): base " \
+        "(20000, 960) queries (1024, 960)" in out
+    for dtype, c in (("bfloat16", 12), ("int8", 16)):
+        assert f"unreduced fused {dtype} c={c} d=960: R@1=" in out
+    assert "unreduced gated probes=16 c=32: R@1=" in out
+    assert "unreduced fused shifted bfloat16 c=12 d_aug=968: R@1=" in out
+    assert "-- unreduced gist1m (d = 960): " in out
     assert set(threading.enumerate()) <= before
 
 
@@ -215,7 +225,7 @@ def test_epilogue_checks_run_their_kernels(chip_smoke, monkeypatch, capsys):
         assert rec["library_ms"] == 1.0 and rec["launches"] == 0  # CPU
     cores = {lb: records[f"binned_scan[{lb}]"]["cores"] for lb in labels}
     assert cores.pop("unprescaled,float32,l2,packed") == "cuda"
-    assert cores.pop("unprescaled,d=160,l2,packed") == "cuda"
+    assert cores.pop("unprescaled,d=160,l2,packed") == "tensor"
     assert set(cores.values()) == {"tensor"}
 
 
@@ -346,6 +356,134 @@ def test_shifted_kernel_check_runs_its_kernel(chip_smoke, monkeypatch,
     assert rec["library_ms"] == 1.0 and rec["launches"] == 1
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_unreduced_scan_record_runs_its_kernels(chip_smoke, monkeypatch,
+                                                capsys, dtype):
+    """The card-only record of the unreduced phase's K1 (a width above 128,
+    the full batch, the slice against plain), on the CPU with the timers
+    replaced by a call that only runs each function: every key of the
+    kernels' line, the bound at the kind's rate."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "chunked_ms",
+                        lambda fn, x, rows, iters=3: (fn(x), 2.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "GIST_SLICE", 16)
+    rng = np.random.default_rng(9)
+    base = rng.normal(size=(3000, 160)).astype(np.float32)
+    idx = st.FusedScanIndex(base, scan_dtype=dtype, chunk=1024, device="cpu")
+    qf = torch.from_numpy(rng.normal(size=(40, 160)).astype(np.float32))
+    rec = chip_smoke._unreduced_scan_record(st, idx, qf, f"{dtype},d=160")
+    out = capsys.readouterr().out
+    assert f"K1 binned_scan[{dtype},d=160] vs plain (tensor cores" in out
+    assert "'ok': True" in out
+    assert rec["name"] == f"binned_scan[{dtype},d=160]"
+    assert rec["cores"] == "tensor" and rec["max_abs_err"] == 0.0
+    assert rec["ms"] == rec["earlier_ms"] == rec["plain_ms"] == 1.0
+    assert rec["library_ms"] == 2.0 and rec["slice_queries"] == 16
+    n_pad, el = idx.x_lo.shape[0], idx.x_lo.element_size()
+    n_bytes = ((40 + n_pad) * 160 * el + n_pad * 4 + 40 * 4 * (dtype == "int8")
+               + n_pad // idx.bin_size * 40 * 8)
+    assert (rec["bound_ms"], rec["bound_by"]) == chip_smoke.bound_ms(
+        n_bytes, 2.0 * 40 * n_pad * 160, dtype)
+    assert set(rec) >= {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"}
+
+
+def test_unreduced_shifted_record_runs_its_kernels(chip_smoke, monkeypatch,
+                                                   capsys):
+    """The card-only record of the unreduced phase's T3, on the CPU: at the
+    index's width (d 300: d_aug 308 padded to 312, past the register-
+    resident widths a 16-bit row is a multiple of 16 bytes) on both
+    routes, and at the unpadded 308, each against plain."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.kernels import scan_topk as st
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "chunked_ms",
+                        lambda fn, x, rows, iters=3: (fn(x), 2.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "GIST_SLICE", 16)
+    rng = np.random.default_rng(10)
+    base = rng.normal(size=(3000, 300)).astype(np.float32)
+    idx = st.FusedScanIndex(base, mode="shifted", chunk=1024, device="cpu")
+    assert idx.x_aug.shape[1] == 312          # 304 + 4, to a multiple of 8
+    qf = torch.from_numpy(rng.normal(size=(40, 300)).astype(np.float32))
+    records = {"shifted_scan[d_aug=312]": {"launches": 1}}
+    chip_smoke._unreduced_shifted_record(st, idx, qf, records,
+                                         "shifted_scan[d_aug=312]", "tensor")
+    out = capsys.readouterr().out
+    for width, cores in ((312, "tensor"), (312, "cuda"), (308, "tensor")):
+        assert (f"T3 shifted_scan[d_aug={width}] vs plain ({cores} cores"
+                in out)
+    assert out.count("'ok': True") == 3
+    rec = records["shifted_scan[d_aug=312]"]
+    assert rec["launches"] == 1 and rec["unpadded_d_aug"] == 308
+    assert rec["max_abs_err"] == 0.0 and rec["library_ms"] == 2.0
+    assert rec["earlier_ms"] is None and rec["bound_ms"] > 0
+
+
+def test_gated_check_records_a_wide_width(chip_smoke, monkeypatch, capsys):
+    """T4's check at a width above 128 (the wide CUDA-core kernel on the
+    card): its record under the name asked for, no earlier kernel, the
+    matmul yardstick over blocks of the corpus."""
+    import numpy as np
+    import torch
+
+    from gbnns_tpu_torch.search.gated import GatedScanIndex
+
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "chunked_ms",
+                        lambda fn, x, rows, iters=3: (fn(x), 2.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=(4096, 160)).astype(np.float32)
+    idx = GatedScanIndex(base, fine=32, m=16, sub=256, chunk=1024, tq=64,
+                         kmeans_sample=None, device="cpu")
+    records = {}
+    ql = torch.from_numpy(rng.normal(size=(200, 160)).astype(np.float32))
+    chip_smoke.gated_check(idx, ql, records, name="gated_topm[d=160]",
+                           wide=True)
+    out = capsys.readouterr().out
+    assert "T4 gated_topm vs plain (probes 16) on the cuda cores" in out
+    assert "(no kernel took this width before)" in out
+    rec = records["gated_topm[d=160]"]
+    assert rec["name"] == "gated_topm[d=160]" and rec["cores"] == "cuda"
+    assert rec["earlier_ms"] is None and rec["yardstick_ms"] == 2.0
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+
+
+def test_epilogue_agreements_hold_every_epilogue(chip_smoke, monkeypatch,
+                                                capsys):
+    """The card-only check of T1's epilogues at a width above 128, on the
+    CPU: each of EPILOGUES against plain, no record."""
+    import numpy as np
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    rng = np.random.default_rng(12)
+    lo = rng.normal(size=(3000, 160)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(24, 160)).astype(np.float32))
+    chip_smoke.epilogue_agreements(lo, q, "d=160")
+    out = capsys.readouterr().out
+    for label, *_ in chip_smoke.EPILOGUES:
+        assert (f"K1 binned_scan[{label},d=160] vs plain (tensor cores, "
+                f"24 queries)") in out
+    assert out.count("'ok': True") == len(chip_smoke.EPILOGUES)
+
+
 def test_knn_record_runs_its_kernel(chip_smoke, monkeypatch, capsys):
     """The card-only record of T6, on the CPU with the timer replaced by a
     call that only runs each function."""
@@ -419,6 +557,7 @@ def test_teardown_checks_only_the_runs_own_threads(chip_smoke, monkeypatch):
     monkeypatch.setattr(chip_smoke, "serve_graph", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "pipeline_phase", lambda *a, **k: {})
     monkeypatch.setattr(chip_smoke, "sharded_phase", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "unreduced_phase", lambda *a, **k: None)
     try:
         chip_smoke.main("cpu", targets=False)
         left = threading.Thread(target=stop.wait, daemon=True)

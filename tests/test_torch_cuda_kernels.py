@@ -172,7 +172,7 @@ def test_tensor_scan_matches_plain(dev, kind, bin_size, B, packed):
 
 @pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 960])
 def test_tensor_scan_ties_go_to_the_lower_row(dev, kind, packed, d):
     """Eight distinct small-integer rows, each stored many times at
     shuffled positions: every sum is exact in both versions, so the
@@ -289,12 +289,85 @@ def test_epilogues_match_plain(dev, kind, cores, metric, prescaled, shifted,
 @pytest.mark.parametrize("packed", [False, True])
 def test_epilogues_at_every_width(dev, d, metric, prescaled, shifted,
                                   packed):
-    """The tensor-core widths and the wide CUDA-core kernel (d = 160) on
-    the routes scan_cores gives them."""
+    """The tensor-core widths on the routes scan_cores gives them: d = 160
+    now takes the tensor cores too (both operands staged in shared
+    memory), where it took the wide CUDA-core kernel."""
     cores = st.scan_cores(torch.bfloat16, d, 1024)
-    assert cores == ("cuda" if d == 160 else "tensor")
+    assert cores == "tensor"
     _epilogue_check(dev, "bfloat16", metric, prescaled, shifted, packed,
                     cores, d=d)
+
+
+# the wide tensor-core K1 (d > 128): T1's epilogues and the served
+# prescaled ones, two of them (l2 and ip prescaled) beside EPILOGUES
+WIDE_EPILOGUES = EPILOGUES + [("l2", True, False), ("ip", True, False)]
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [144, 160, 256, 272, 960])
+@pytest.mark.parametrize("metric,prescaled,shifted", WIDE_EPILOGUES)
+@pytest.mark.parametrize("packed", [False, True])
+def test_wide_tensor_scan_epilogues_match_plain(dev, kind, d, metric,
+                                                prescaled, shifted, packed):
+    """K1 on the tensor cores above d = 128 (one stage of the ring at 144
+    and 160 is partly zero-filled, 272 and 960 span several), every
+    epilogue, counted on the tensor route."""
+    assert st.scan_cores(kind, d, 1024) == "tensor"
+    _epilogue_check(dev, kind, metric, prescaled, shifted, packed, "tensor",
+                    d=d)
+
+
+@pytest.mark.parametrize("d", [144, 160, 288, 304, 960])
+@pytest.mark.parametrize("packed", [False, True])
+def test_wide_tensor_int8_scan_is_bit_equal_to_plain(dev, d, packed):
+    """int8 above d = 128: exact int32 sums converted per score (exact for
+    |acc| < 2^24, where kMagic's convert stops at 2^22, d = 256), then the
+    plain version's two roundings: bit-equal. At 144 and 304 (GloVe-300's
+    scan_width) the row is 16 bytes past a multiple of 32, so the last
+    k32 step is half zero-filled."""
+    n, B = 4096, 300
+    q, x, add, alpha = (t.to(dev) for t in _scan_inputs(n, d, B, True))
+    add[-5:] = float("inf")
+    got = _tensor_scan(q, x, add, alpha, 1024, packed)
+    ref = st.binned_scan_plain(q, x, add, alpha,
+                               **_scan_kw(x, alpha, 1024, packed))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("bin_size", [16, 64, 1024])
+@pytest.mark.parametrize("B", [1, 300])
+@pytest.mark.parametrize("packed", [False, True])
+def test_wide_tensor_scan_bins_and_batches(dev, kind, bin_size, B, packed):
+    """The wide tensor-core K1 at bins under its 128-row step and batches
+    off its 256-query tile; the last bin holds padding rows only."""
+    n = 4096
+    q, x, add, alpha = (t.to(dev) if t is not None else None
+                        for t in _scan_inputs(n, 160, B, kind == "int8"))
+    add[n - bin_size:] = float("inf")
+    got = _tensor_scan(q, x, add, alpha, bin_size, packed)
+    kw = _scan_kw(x, alpha, bin_size, packed)
+    ref = st.binned_scan_plain(q, x, add, alpha, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, alpha, rtol=1e-5, **kw)
+    assert rep["ok"], rep
+    assert torch.isinf(got[0][-1]).all()
+    assert (got[1][-1] == n - bin_size).all()
+
+
+@pytest.mark.parametrize("d", [24, 100, 200])
+@pytest.mark.parametrize("kind", ["bfloat16", "float32"])
+def test_scan_pads_a_width_no_kernel_takes(dev, d, kind):
+    """binned_scan at a width JAX takes and no kernel does: padded with
+    zero columns to scan_width(d) on the card, the plain version's winners
+    at the unpadded width."""
+    q, x, add, qshift = (None if t is None else t.to(dev) for t in
+                         _epilogue_inputs(4096, d, 300, kind, "l2", False,
+                                          False))
+    kw = dict(bin_size=256, chunk=4096)
+    got = st.binned_scan(q, x, add, **kw)
+    ref = st.binned_scan_plain(q, x, add, **kw)
+    rep = st.scan_agreement(got, ref, q, x, add, rtol=1e-5, **kw)
+    assert rep["ok"], rep
 
 
 @pytest.mark.parametrize("bin_size", [8, 16, 96])
@@ -603,7 +676,14 @@ GATED_TC_SHAPES = [
 ]
 _DTYPE_IDS = {torch.bfloat16: "bf16", torch.float16: "fp16",
               torch.float32: "f32"}
-GATED_CASES = ([(s, dt, "cuda") for s in GATED_SHAPES
+# the wide CUDA-core kernel: d 160 and 960 at the CPU tests' geometry and
+# the index's defaults (two chunks), and 144 with a 32-winner list
+GATED_WIDE_SHAPES = [
+    (4096, 160, 192, 4, 16, 64, 512, 64),
+    (32768, 960, 512, 32, 16, 1024, 16384, 512),
+    (8192, 144, 384, 8, 32, 256, 2048, 128),
+]
+GATED_CASES = ([(s, dt, "cuda") for s in GATED_SHAPES + GATED_WIDE_SHAPES
                 for dt in (torch.bfloat16, torch.float16, torch.float32)]
                + [(s, dt, "tensor") for s in GATED_TC_SHAPES
                   for dt in (torch.bfloat16, torch.float16)])
@@ -707,8 +787,6 @@ def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):
     before = st.launches["gated_topm"]
     with pytest.raises(ValueError, match="at most 32"):
         st.gated_topm_scan(q, x, add, tile_mask, m=64, **kw)
-    with pytest.raises(ValueError, match="d in"):
-        st.gated_topm_scan(q[:, :24], x[:, :24], add, tile_mask, m=16, **kw)
     with pytest.raises(TypeError, match="int8"):
         st.gated_topm_scan(q.to(torch.int8), x.to(torch.int8), add,
                            tile_mask, m=16, **kw)
@@ -720,6 +798,14 @@ def test_gated_topm_kernel_refuses_what_it_cannot_take(dev):
         st.gated_topm_scan(q.float(), x.float(), add, tile_mask, m=16,
                            cores="tensor", **{**kw, "fine": 16})
     assert st.launches["gated_topm"] == before
+    # d = 24, which it refused before, is padded to 32 and computed
+    got = st.gated_topm_scan(q[:, :24], x[:, :24], add, tile_mask, m=16,
+                             **kw)
+    ref = st.gated_topm_scan_plain(q[:, :24], x[:, :24], add, tile_mask,
+                                   m=16, **kw)
+    rep = st.gated_agreement(got, ref, q[:, :24], x[:, :24], add, fine=4,
+                             sub=64, chunk=512)
+    assert rep["ok"], rep
 
 
 def test_gated_index_on_the_card(dev, monkeypatch):
@@ -837,6 +923,51 @@ def test_shifted_scan_on_the_cuda_cores_when_asked(dev, dtype):
     assert rep["ok"], rep
 
 
+@pytest.mark.parametrize("d", [272, 960])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("bin_size", [8, 1024])
+@pytest.mark.parametrize("B", [127, 300])
+def test_wide_shifted_scan_matches_plain(dev, d, metric, dtype, bin_size, B):
+    """T3 past the register-resident widths: d_aug 276 and 964, which the
+    wrapper pads to 280 and 968 (rows of a multiple of 16 bytes), on the
+    tensor cores in bf16 and fp16 at bins of 1,024, and the wide CUDA-core
+    kernel in f32 and at bins of 8; a last bin of padding rows only."""
+    n_pad, n = 4096, 3500
+    q, x = (t.to(dev) for t in _shifted_inputs(n_pad, n, d, B, metric,
+                                               dtype))
+    cores = st.shifted_cores(x.dtype, d + 4, bin_size)
+    assert cores == ("tensor" if bin_size == 1024 and dtype != torch.float32
+                     else "cuda")
+    assert st.shifted_width(d + 4) == d + 8
+    before = st.launches_by_cores[f"shifted_scan:{cores}"]
+    got = st.shifted_scan(q, x, bin_size=bin_size)
+    torch.cuda.synchronize()
+    assert st.launches_by_cores[f"shifted_scan:{cores}"] == before + 1
+    ref = st.shifted_scan_plain(q, x, bin_size=bin_size)
+    rep = st.shifted_agreement(got, ref, q, x, bin_size=bin_size)
+    assert rep["ok"], rep
+    real = -(-n // bin_size)
+    assert (got[1][:, :real] < n).all()
+    assert torch.isinf(got[0][:, real:]).all()
+
+
+@pytest.mark.parametrize("d", [960])
+def test_wide_shifted_tensor_scan_ties_go_to_the_lower_row(dev, d):
+    """Small-integer rows stored many times at d_aug 964: exact sums, so
+    the wide T3 gives plain's keys exactly, ties to the lower row."""
+    rng = np.random.default_rng(14)
+    distinct = rng.integers(-3, 4, size=(8, d + 4)).astype(np.float32)
+    x = torch.from_numpy(distinct[rng.integers(0, 8, 4096)])
+    q = torch.from_numpy(rng.integers(-3, 4, size=(300, d + 4))
+                         .astype(np.float32))
+    x, q = x.to(dev, torch.bfloat16), q.to(dev, torch.bfloat16)
+    got = st.shifted_scan(q, x, bin_size=256)
+    ref = st.shifted_scan_plain(q, x, bin_size=256)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 def test_shifted_tensor_scan_ties_go_to_the_lower_row(dev):
     """Small-integer rows stored many times: exact sums, so T3 gives
     plain's keys exactly, ties to the lower row."""
@@ -859,11 +990,14 @@ def test_shifted_scan_kernel_refuses_what_it_cannot_take(dev):
         st.shifted_scan(q, x.to(torch.int8), bin_size=64)
     with pytest.raises(ValueError, match="power-of-two"):
         st.shifted_scan(q, x, bin_size=24)
-    with pytest.raises(ValueError, match="d_aug in"):
-        st.shifted_scan(q[:, :33], x[:, :33], bin_size=64)
     with pytest.raises(ValueError, match="augment mismatch"):
         st.shifted_scan(q[:, :20], x, bin_size=64)
     assert st.launches["shifted_scan"] == before
+    # d_aug = 33, which it refused before, is padded to 36 and computed
+    got = st.shifted_scan(q[:, :33], x[:, :33], bin_size=64)
+    ref = st.shifted_scan_plain(q[:, :33], x[:, :33], bin_size=64)
+    rep = st.shifted_agreement(got, ref, q[:, :33], x[:, :33], bin_size=64)
+    assert rep["ok"], rep
 
 
 @pytest.mark.parametrize("metric", ["l2", "angular"])

@@ -3,8 +3,8 @@ run on: the route functions ``scan_cores``, ``shifted_cores`` and
 ``gated_cores`` give "tensor" for every shape of the main paths (the served
 bf16/fp16/int8 scans, the graph build's packed scan, the shifted search,
 the gated search at GatedScanIndex's defaults) and "cuda" for f32 and for
-shapes the tensor-core kernels do not tile; T3's width check follows the
-route. The kernels themselves run only on the card
+shapes the tensor-core kernels do not tile; T3 pads a width no kernel
+takes to ``shifted_width``. The kernels themselves run only on the card
 (tests/test_torch_cuda_kernels.py)."""
 
 import inspect
@@ -52,8 +52,7 @@ def test_shifted_search_takes_the_tensor_cores(corpus, kind, metric):
     assert d_aug == 36 and idx.bin_size == 1024
     assert st.shifted_cores(idx.x_aug.dtype, d_aug, idx.bin_size) == "tensor"
     assert st.shifted_cores(kind, 36) == "tensor"
-    assert st.check_shifted_width(idx.x_aug.dtype, d_aug,
-                                  idx.bin_size) == "tensor"
+    assert st.shifted_width(d_aug) == d_aug   # stored at the kernel's width
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
@@ -80,32 +79,45 @@ def test_bins_off_the_row_tile_stay_on_the_cuda_cores(kind, bin_size):
 
 @pytest.mark.parametrize("kind", ["bfloat16", "int8"])
 def test_widths_above_128_stay_on_the_cuda_cores(kind):
-    assert st.scan_cores(kind, 160, 1024) == "cuda"
+    """They no longer do: widths above 128 take the tensor cores, with both
+    operands staged in shared memory (f32 alone stays on the CUDA cores)."""
+    assert st.scan_cores(kind, 160, 1024) == "tensor"
 
 
 @pytest.mark.parametrize("kind", ["bfloat16", "float16"])
 @pytest.mark.parametrize("d_aug", [4, 20, 36, 44, 68, 132, 164, 260, 264])
 def test_shifted_tensor_route_takes_any_multiple_of_4(kind, d_aug):
     assert st.shifted_cores(kind, d_aug) == "tensor"
-    assert st.check_shifted_width(getattr(torch, kind), d_aug) == "tensor"
+    assert st.shifted_width(d_aug) == d_aug   # no padding up to 264
 
 
 @pytest.mark.parametrize("d_aug", [20, 36, 68, 132])
 def test_shifted_f32_and_small_bins_stay_on_the_cuda_cores(d_aug):
     assert st.shifted_cores(torch.float32, d_aug) == "cuda"
     assert st.shifted_cores(torch.bfloat16, d_aug, bin_size=8) == "cuda"
-    assert st.check_shifted_width(torch.float32, d_aug) == "cuda"
+    assert st.shifted_width(d_aug) == d_aug
 
 
-@pytest.mark.parametrize("kind,d_aug,bin_size", [
-    (torch.float32, 164, 1024),    # f32 runs the CUDA-core widths only
-    (torch.bfloat16, 34, 1024),    # not a multiple of 4
-    (torch.bfloat16, 268, 1024),   # past the register budget
-    (torch.float16, 164, 8),       # a bin under the row tile: CUDA cores
+@pytest.mark.parametrize("kind,d_aug,bin_size,width", [
+    (torch.float32, 166, 1024, 168),   # not a multiple of 4
+    (torch.bfloat16, 34, 1024, 36),
+    (torch.bfloat16, 270, 1024, 272),  # past the register budget as well
+    (torch.float16, 268, 8, 272),      # a bin under the row tile: CUDA cores
 ])
-def test_shifted_width_check_refuses(kind, d_aug, bin_size):
-    with pytest.raises(ValueError, match="d_aug in"):
-        st.check_shifted_width(kind, d_aug, bin_size)
+def test_shifted_width_check_refuses(kind, d_aug, bin_size, width):
+    """No width is refused any more: ``shifted_scan`` pads one no kernel
+    takes with zero columns to ``shifted_width`` (a multiple of 4; of 8
+    past 264), which gives the unpadded scan's winners exactly."""
+    assert st.shifted_width(d_aug) == width
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(5, d_aug)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(2 * bin_size, d_aug))
+                         .astype(np.float32)).to(kind)
+    got = st.shifted_scan(q, x, bin_size=bin_size)
+    pad = st.shifted_scan_plain(
+        torch.nn.functional.pad(q, (0, width - d_aug)),
+        torch.nn.functional.pad(x, (0, width - d_aug)), bin_size=bin_size)
+    assert torch.equal(got[0], pad[0]) and torch.equal(got[1], pad[1])
 
 
 @pytest.mark.parametrize("kind", ["bfloat16", "float16", "int8"])
@@ -132,7 +144,7 @@ def test_a_route_asked_for_gives_the_same_scan(kind, cores):
 @pytest.mark.parametrize("kind,d,bin_size,cores", [
     (torch.float32, 32, 1024, "tensor"),   # f32 has no tensor-core kernel
     (torch.bfloat16, 32, 8, "tensor"),     # nor a bin under the row tile
-    (torch.bfloat16, 160, 1024, "tensor"),  # nor d > 128
+    (torch.float32, 160, 1024, "tensor"),  # nor f32 at d > 128
     (torch.bfloat16, 32, 1024, "gpu"),     # not a route
 ])
 def test_a_route_the_kernel_lacks_is_refused(kind, d, bin_size, cores):
@@ -146,15 +158,21 @@ def test_a_route_the_kernel_lacks_is_refused(kind, d, bin_size, cores):
     (torch.bfloat16, 36, "cuda", "cuda"),
     (torch.float16, 132, "cuda", "cuda"),
     (torch.bfloat16, 164, "tensor", "tensor"),
-    (torch.bfloat16, 164, "cuda", None),   # the CUDA cores' widths only
+    (torch.bfloat16, 164, "cuda", "cuda"),  # the wide CUDA-core kernel
     (torch.float32, 36, "tensor", None),   # f32 has no tensor-core kernel
 ])
 def test_shifted_route_asked_for(kind, d_aug, cores, want):
+    """A route asked for is taken where a kernel has it (on the CPU the
+    plain scan's answer) and refused where none does."""
+    q = torch.ones((3, d_aug), dtype=kind)
+    x = torch.zeros((2048, d_aug), dtype=kind)
     if want is None:
-        with pytest.raises(ValueError, match="d_aug in|tensor-core kernel"):
-            st.check_shifted_width(kind, d_aug, 1024, cores)
+        with pytest.raises(ValueError, match="tensor-core kernel"):
+            st.shifted_scan(q, x, bin_size=1024, cores=cores)
     else:
-        assert st.check_shifted_width(kind, d_aug, 1024, cores) == want
+        got = st.shifted_scan(q, x, bin_size=1024, cores=cores)
+        ref = st.shifted_scan_plain(q, x, bin_size=1024)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("kind,cores", [(torch.float32, "tensor"),
@@ -186,8 +204,8 @@ def test_wide_shifted_index_routes_to_the_tensor_cores():
     base = rng.normal(size=(3000, 160)).astype(np.float32)
     idx = st.FusedScanIndex(base, mode="shifted", chunk=1024, device="cpu")
     assert idx.x_aug.shape[1] == 164
-    assert st.check_shifted_width(idx.x_aug.dtype, 164,
-                                  idx.bin_size) == "tensor"
+    assert st.shifted_cores(idx.x_aug.dtype, 164, idx.bin_size) == "tensor"
+    assert st.shifted_width(164) == 164
     ids, _ = idx.search(base[:20], k=1, c=16)
     assert (ids[:, 0].numpy() == np.arange(20)).all()
 
